@@ -5,24 +5,32 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. device and build: the card's name and power limit, then ``nvcc``
-     builds every kernel of the main path from ``src/repro_torch/kernels/
+     builds every kernel of the main paths from ``src/repro_torch/kernels/
      csrc`` (one process per source, all started together);
   2. kernels against their plain PyTorch versions on the card, at the
-     serving path's full-width shapes (f32 within 1e-4, bf16 within 2e-2:
+     serving paths' full-width shapes (f32 within 1e-4, bf16 within 2e-2:
      the paged plain version rounds p to bf16, the kernel does not) and at
      a small shape with the edge cases (length 0, lengths on a page
      boundary, unmapped pages holding garbage, a mixed batch,
-     ``scale_override=0.0``; a window, GQA and a ragged S for flash), then
-     each kernel's time beside its plain version's, its bound and, for
-     flash, ``scaled_dot_product_attention`` as a yardstick the port never
-     calls;
-  3. serve: full-width qwen2-1.5b in bf16 with the kernels on, random
+     ``scale_override=0.0``; a window, GQA and a ragged S for flash); the
+     WKV6 scan within rtol = atol = 2e-4 at full width (bf16 and f32) and
+     on its edge cases (a single chunk, a ragged S, strong decay, w with
+     exact zeros, a batch with a nonzero initial state, head size 16);
+     then each kernel's time beside its plain version's, its bound and,
+     for flash, ``scaled_dot_product_attention`` as a yardstick the port
+     never calls;
+  3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
      after this run, and a second run times each engine stage apart;
-  4. reference: the reduced qwen2 config in f32 served on the card and on
-     the CPU (plain versions, which the tests hold to the JAX reference)
-     must give the same logits and token streams.
+  4. serve rwkv6-7b: full width in bf16 with the kernels on, the same 8
+     prompt lengths, its recurrent state in each request's dense slot (no
+     KV, so no LMB traffic, by the reference's design); one scan launch
+     per prompt and layer between the reset and the read of the counts;
+     a second run times prefill and decode apart;
+  5. reference: each reduced config in f32 served on the card and on the
+     CPU (plain versions, which the tests hold to the JAX reference) must
+     give the same logits, token streams and link bytes.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -30,6 +38,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -41,7 +50,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan")
+#: the kernels each served model's main path launches
+QWEN_KERNELS = ("paged_attention", "flash_attention")
+RWKV_KERNELS = ("rwkv6_scan",)
 
 
 def card_line() -> str:
@@ -186,7 +198,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:105",
+         "replaces": "src/repro/kernels/paged_attention.py:106",
          "launches": 0, "max_abs_err": errs["paged_attention"],
          "ms": pa_ms, "plain_ms": pa_plain_ms, "bound_ms": pa_bound,
          "bound_by": ("bytes" if pa_bytes / HBM_BYTES_PER_S
@@ -205,6 +217,102 @@ def kernel_phase(torch, serve_lengths, prompt_max):
          "library_ms": lib_ms,
          "shape": f"B=1 S={S} H={H} KV={KV} hd={hd} causal bf16"},
     ]
+
+
+def close(name: str, got, want, tol: float) -> float:
+    """Hold got to want within rtol = atol = tol; returns the max abs err."""
+    import torch
+    err = max_err(got, want)
+    print(f"  {name}: max_abs_err={err:.3e} (rtol=atol={tol:g})")
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: not within rtol=atol={tol}")
+    return err
+
+
+def wkv_inputs(torch, gen, B, S, H, N, dtype, decay="weak",
+               state_scale=0.0):
+    """r, k, v in ``dtype`` and f32 w, u, state, as the model passes them
+    (weak decay: w in (0.69, 0.99); strong: w down to about 0.01)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    r, k, v = (randn(B, S, H, N).to(dtype) for _ in range(3))
+    if decay == "strong":
+        w = torch.exp(-torch.exp(torch.rand((B, S, H, N), generator=gen,
+                                            device="cuda") * 3.5 - 2.0))
+    else:
+        w = torch.sigmoid(randn(B, S, H, N)) * 0.3 + 0.69
+    return r, k, v, w, randn(H, N) * 0.2, randn(B, H, N, N) * state_scale
+
+
+def wkv_cost(B, S, H, N, esz):
+    """Bytes the scan must move (r, k, v in ``esz`` bytes, w, u, state,
+    out and state' in f32, each once) and the operations it does: per
+    token and head, the read-out r S (N^2 multiply-adds), the update
+    w S + k^T v (N^2 multiplies and multiply-adds) and the bonus
+    (r u k) v (4N), a multiply-add counting as two."""
+    nbytes = (3 * esz + 4 + 4) * B * S * H * N + 4 * H * N \
+        + 2 * 4 * B * H * N * N
+    flops = B * S * H * (5 * N * N + 4 * N)
+    return nbytes, flops
+
+
+def rwkv_kernel_phase(torch, prompt_max):
+    """The WKV6 scan against its plain version, then timed at the full
+    width of one rwkv6-7b prefill of the longest prompt."""
+    from repro_torch.kernels import rwkv6_scan as rw
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tol = 2e-4
+    H, N = 64, 64
+    print("phase 2: rwkv6_scan against its plain version")
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).split(".")[1]
+        args = wkv_inputs(torch, gen, 1, prompt_max, H, N, dtype)
+        out, st = rw.rwkv6_scan_cuda(*args)
+        pout, pst = rw.rwkv6_scan_plain(*args)
+        e = close(f"wkv {tag} full width B=1 S={prompt_max} H={H} N={N} "
+                  "out", out, pout, tol)
+        close(f"wkv {tag} full width state'", st, pst, tol)
+        if dtype == torch.bfloat16:
+            err = e
+        for label, (B, S, h, n, decay, scale, zeros) in {
+                "single chunk": (1, 17, 4, 64, "weak", 0.0, False),
+                "ragged S": (1, 100, 4, 64, "weak", 0.0, False),
+                "strong decay": (1, 256, 4, 64, "strong", 0.0, False),
+                "w with zeros": (1, 130, 4, 64, "strong", 0.0, True),
+                "B=2, state": (2, 96, 4, 64, "weak", 0.5, False),
+                "head size 16": (2, 70, 4, 16, "strong", 0.5, False),
+        }.items():
+            r, k, v, w, u, st0 = wkv_inputs(torch, gen, B, S, h, n, dtype,
+                                            decay, scale)
+            if zeros:
+                w[:, ::7] = 0.0
+                w[:, :, 1, :4] = 0.0
+            out, st = rw.rwkv6_scan_cuda(r, k, v, w, u, st0)
+            pout, pst = rw.rwkv6_scan_plain(r, k, v, w, u, st0)
+            if not (torch.isfinite(out).all() and torch.isfinite(st).all()):
+                raise AssertionError(f"wkv {tag} {label}: not finite")
+            close(f"wkv {tag} {label} B={B} S={S} H={h} N={n} out", out,
+                  pout, tol)
+            close(f"wkv {tag} {label} state'", st, pst, tol)
+    torch.cuda.synchronize()
+
+    dt = torch.bfloat16
+    args = wkv_inputs(torch, gen, 1, prompt_max, H, N, dt)
+    nbytes, flops = wkv_cost(1, prompt_max, H, N, 2)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS["float32"]
+    ms = time_ms(lambda: rw.rwkv6_scan_cuda(*args))
+    plain_ms = time_ms(lambda: rw.rwkv6_scan_plain(*args), iters=10)
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan.py:78",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None,
+            "shape": f"B=1 S={prompt_max} H={H} N={N} r/k/v bf16, w f32"}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -292,7 +400,7 @@ def serve_phase(torch, prompts):
     print("  serve: " + json.dumps(result))
     if eng.paged_rounds <= 0:
         raise AssertionError("no paged decode round ran")
-    for name in KERNEL_SOURCES:
+    for name in QWEN_KERNELS:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     if sum(op_bytes.values()) <= 0 or c.misses <= 0:
@@ -302,10 +410,84 @@ def serve_phase(torch, prompts):
     return result
 
 
+def rwkv_serve_phase(torch, lens, news):
+    """Full-width rwkv6-7b served from random bf16 weights: every prefill
+    through the scan kernel, decode on the dense slot path."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()            # the qwen phase's params are gone
+    cfg = get_config("rwkv6-7b")
+    flags = Flags(remat=False, use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.monotonic()
+    params = build_model(cfg, flags, device="cuda").init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"phase 4: serve rwkv6-7b full width, {n_params} params bf16, "
+          f"init {time.monotonic() - t:.2f}s")
+    rng = np.random.default_rng(1)
+    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+               for n, m in zip(lens, news)]
+    # one KV page would be L*2*32*KV*hd*2 B = 16 MiB; this model stores none
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=4)
+    eng, _, _, _, system = serve(torch, cfg, flags, params,
+                                 [(prompts[0][0][:16], 2)], ecfg, "cuda")
+    system.close()
+    del eng
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    eng, rids, rounds, wall, system = serve(torch, cfg, flags, params,
+                                            prompts, ecfg, "cuda")
+    torch.cuda.synchronize()
+    launches = cuda_build.launch_counts()
+    st = eng.stats()
+    reqs = [eng.requests[r] for r in rids]
+    if not all(r.state == "done" for r in reqs):
+        raise AssertionError(f"not all done: {[r.state for r in reqs]}")
+    for r, (_, n) in zip(reqs, prompts):
+        if len(r.out_tokens) != n or not all(
+                0 <= t < cfg.padded_vocab for t in r.out_tokens):
+            raise AssertionError(f"request {r.req_id}: bad tokens")
+    op_bytes = eng.kv.buf.host.fm.op_bytes()
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    result = {
+        "requests": len(reqs), "generated_tokens": gen_tokens,
+        "wall_s": wall, "tokens_per_s": gen_tokens / wall,
+        "mean_ttft_s": st["mean_ttft_s"],
+        "mean_round_s": sum(rounds) / len(rounds), "rounds": len(rounds),
+        "decode_path": st["decode_path"], "paged_rounds": eng.paged_rounds,
+        "launches": launches, "lmb_link_bytes": op_bytes,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    system.close()
+    print("  serve: " + json.dumps(result))
+    if st["decode_path"] != "dense" or eng.paged_rounds != 0:
+        raise AssertionError("rwkv6 left the dense slot path")
+    want = cfg.num_layers * len(prompts)
+    if launches.get("rwkv6_scan", 0) != want:
+        raise AssertionError(f"rwkv6_scan launched "
+                             f"{launches.get('rwkv6_scan', 0)} times, not "
+                             f"{want} (one per prompt and layer)")
+    if op_bytes:
+        raise AssertionError(f"rwkv6 moved LMB bytes: {op_bytes}")
+    result["breakdown"] = breakdown_phase(torch, cfg, flags, params, prompts,
+                                          ecfg)
+    return result
+
+
 def breakdown_phase(torch, cfg, flags, params, prompts, ecfg):
     """The serve run again, each stage of the engine timed on the host
     with a device sync after it (so stages do not overlap): where a round's
-    time goes.  Not the measured run: the syncs cost a little."""
+    time goes.  Not the measured run: the syncs cost a little.  The model
+    step is the paged step or, on the dense slot path, the per-request
+    decode step; a path's stages that never run stay at 0."""
     acc = {"prefill": 0.0, "decode_view": 0.0, "model_step": 0.0,
            "commit_decode": 0.0}
 
@@ -321,7 +503,9 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg):
 
     def instrument(eng):
         eng._prefill_fn = timed("prefill", eng._prefill_fn)
-        eng._paged_fn = timed("model_step", eng._paged_fn)
+        if eng._paged_fn is not None:
+            eng._paged_fn = timed("model_step", eng._paged_fn)
+        eng._decode_fn = timed("model_step", eng._decode_fn)
         eng.kv.decode_view = timed("decode_view", eng.kv.decode_view)
         eng.kv.commit_decode = timed("commit_decode", eng.kv.commit_decode)
 
@@ -344,9 +528,9 @@ def _leaves(tree):
             yield v
 
 
-# ----------------------------------------------------------------- phase 4
-def reference_phase(torch):
-    """Reduced qwen2 in f32: the card (kernels) against the CPU (plain
+# ----------------------------------------------------------------- phase 5
+def reference_phase(torch, arch, lengths, max_seq_len):
+    """A reduced config in f32: the card (kernels) against the CPU (plain
     versions) on the same params and prompts."""
     import numpy as np
     from repro_torch.configs.base import get_config
@@ -354,16 +538,15 @@ def reference_phase(torch):
     from repro_torch.models.flags import Flags
     from repro_torch.serve import EngineConfig
 
-    cfg = get_config("qwen2-1.5b").reduced()
+    cfg = get_config(arch).reduced()
     flags = Flags(remat=False, use_kernels=True)
     cpu_params = build_model(cfg, flags, device="cpu").init(
         torch.Generator().manual_seed(0))
     gpu_params = _to(cpu_params, "cuda")
     rng = np.random.default_rng(7)
-    specs = [(rng.integers(1, 100, n).astype(np.int32), 6)
-             for n in (5, 13, 20, 9, 17)]
-    ecfg = EngineConfig(decode_slots=2, max_seq_len=64, page_tokens=8,
-                        onboard_pages=4, round_time_s=1e-3)
+    specs = [(rng.integers(1, 100, n).astype(np.int32), 6) for n in lengths]
+    ecfg = EngineConfig(decode_slots=2, max_seq_len=max_seq_len,
+                        page_tokens=8, onboard_pages=4, round_time_s=1e-3)
     streams, op = [], []
     for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         eng, rids, _, _, system = serve(torch, cfg, flags, params, specs,
@@ -371,16 +554,17 @@ def reference_phase(torch):
         streams.append([eng.requests[r].out_tokens for r in rids])
         op.append(eng.kv.buf.host.fm.op_bytes())
         system.close()
-    # logits of one prefill + paged decode step, card against CPU
-    tok = torch.as_tensor(specs[2][0][None])
+    # logits of one prefill of the longest prompt, card against CPU
+    tok = torch.as_tensor(max(specs, key=lambda s: len(s[0]))[0][None])
     logits = []
     for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         model = build_model(cfg, flags, device=device)
         lg, _ = model.prefill(params, {"tokens": tok.to(device)},
-                              model.init_cache(1, 64))
+                              model.init_cache(1, max_seq_len))
         logits.append(lg.cpu())
-    print("phase 4: reduced qwen2 f32, card against CPU plain path")
-    check("prefill logits", max_err(logits[1], logits[0]), 1e-4)
+    print(f"phase 5: reduced {arch} f32, card against CPU plain path")
+    check(f"prefill logits S={tok.shape[1]}", max_err(logits[1], logits[0]),
+          1e-4)
     if streams[0] != streams[1] or op[0] != op[1]:
         raise AssertionError(f"token streams or link bytes differ: "
                              f"{streams} {op}")
@@ -419,7 +603,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # the serve phase's requests: prompts of 16..256 tokens, 16..32 new
+    # the serve phases' requests: prompts of 16..256 tokens, 16..32 new
     rng = np.random.default_rng(0)
     lens = [16, 256, 48, 200, 96, 130, 24, 160]
     news = [int(n) for n in rng.integers(16, 33, len(lens))]
@@ -429,14 +613,20 @@ def main() -> int:
     serve_lengths = [n + m // 2 for n, m in zip(lens, news)]
 
     kernels = kernel_phase(torch, serve_lengths, max(lens))
+    kernels.append(rwkv_kernel_phase(torch, max(lens)))
     result = serve_phase(torch, prompts)
+    rwkv = rwkv_serve_phase(torch, lens, news)
     for k in kernels:
-        k["launches"] = result["launches"].get(k["name"], 0)
-    reference_phase(torch)
+        counts = rwkv if k["name"] in RWKV_KERNELS else result
+        k["launches"] = counts["launches"].get(k["name"], 0)
+    reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
+    reference_phase(torch, "rwkv6-7b", (5, 13, 20, 9, 17, 70), 128)
 
-    print(f"serve: {result['tokens_per_s']:.1f} tokens/s, mean TTFT "
-          f"{result['mean_ttft_s'] * 1e3:.1f} ms, mean round "
-          f"{result['mean_round_s'] * 1e3:.2f} ms on {card}")
+    for name, res in (("qwen2-1.5b", result), ("rwkv6-7b", rwkv)):
+        print(f"serve {name}: {res['tokens_per_s']:.1f} tokens/s, mean TTFT "
+              f"{res['mean_ttft_s'] * 1e3:.1f} ms, mean round "
+              f"{res['mean_round_s'] * 1e3:.2f} ms, peak "
+              f"{res['peak_mem_gib']:.2f} GiB on {card}")
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -208,3 +208,4 @@ def _load_all() -> None:
     # import for side effect of register(); the port lists only the
     # configs whose model family it runs so far
     from repro_torch.configs import qwen2_1_5b  # noqa: F401
+    from repro_torch.configs import rwkv6_7b  # noqa: F401

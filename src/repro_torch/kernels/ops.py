@@ -15,8 +15,10 @@ from typing import Dict, Optional
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rwkv6_scan as _rw
 
-_calls: Dict[str, int] = {"flash_attention": 0, "paged_attention_decode": 0}
+_calls: Dict[str, int] = {"flash_attention": 0, "paged_attention_decode": 0,
+                          "rwkv6_scan": 0}
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -31,6 +33,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def rwkv6_scan(r, k, v, w, u, state, chunk: int = 64):
+    """r,k,v,w [B,S,H,N]; u [H,N]; state [B,H,N,N] -> (out, state'), both
+    f32.  ``chunk`` is the plain version's; the kernel takes any S as it
+    is."""
+    _calls["rwkv6_scan"] += 1
+    if r.is_cuda:
+        return _rw.rwkv6_scan_cuda(r, k, v, w, u, state)
+    return _rw.rwkv6_scan_plain(r, k, v, w, u, state, chunk=chunk)
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):

@@ -1,13 +1,15 @@
 """Plain torch oracles for the ported kernels (the allclose targets).
 
-The SIMPLEST correct implementations (naive exact softmax), independent of
-the blocked math of the kernels and of the model's chunked path — the
-counterparts of ``repro.kernels.ref``.
+The SIMPLEST correct implementations (naive exact softmax, per-token
+recurrence), independent of the blocked math of the kernels and of the
+model's chunked path — the counterparts of ``repro.kernels.ref``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -15,6 +17,27 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 
 #: the flash kernel's plain version already is the exact-softmax oracle
 flash_attention_ref = flash_attention_plain
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive per-token WKV6 recurrence, in f32.
+
+    r,k,v,w [B,S,H,N]; u [H,N]; state [B,H,N,N] -> (out [B,S,H,N], state').
+      o_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    """
+    f32 = torch.float32
+    r, k, v, w = (a.to(f32) for a in (r, k, v, w))
+    u = u.to(f32)
+    s = state.to(f32)
+    outs = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhn,bhm->bhnm", k[:, t], v[:, t])
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t],
+                                 s + u[None, ..., None] * kv))
+        s = s * w[:, t, ..., None] + kv
+    return torch.stack(outs, dim=1), s
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,9 +1,10 @@
-"""Decoder-only LM trunk, DENSE blocks (port of repro.models.transformer).
+"""Decoder-only LM trunk, DENSE and RWKV6 blocks (port of
+repro.models.transformer).
 
 Layer params are stacked on a leading [L] axis, as in the reference; where
 the reference scans over layers (``scan_layers``), the port runs a Python
 loop over per-layer views.  Caches and pools are updated **in place**.
-MoE, RWKV6, hybrid and encoder-decoder blocks are not ported yet and raise
+MoE, hybrid and encoder-decoder blocks are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -13,30 +14,43 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import DENSE, ArchConfig
+from repro_torch.configs.base import DENSE, RWKV6, ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.flags import Flags
 from repro_torch.models.layers import (Params, dtype_of, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
 
+#: the recurrent state an RWKV6 layer keeps in the decode cache
+RWKV_KEYS = ("tmix_prev", "wkv", "cmix_prev")
+
+
+def _layer_keys(cfg: ArchConfig) -> tuple:
+    """The [L]-stacked leaves of the decode cache."""
+    return RWKV_KEYS if cfg.block_type == RWKV6 else ("k", "v")
+
 
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.encoder_decoder or cfg.block_type != DENSE:
+    if cfg.encoder_decoder or cfg.block_type not in (DENSE, RWKV6):
         kind = "encoder-decoder" if cfg.encoder_decoder else cfg.block_type
         raise NotImplementedError(
             f"{cfg.name}: {kind} blocks are not ported to repro_torch yet "
-            "(only DENSE decoder-only models are)")
+            "(only DENSE and RWKV6 decoder-only models are)")
 
 
 # ---------------------------------------------------------------- layer init
 def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig,
                         n: int) -> Params:
-    """[L]-stacked DENSE layer params drawn from ``gen``."""
+    """[L]-stacked layer params drawn from ``gen``."""
     check_supported(cfg)
-    return {"norm1": rms_norm_init(cfg.d_model, gen.device, n),
-            "norm2": rms_norm_init(cfg.d_model, gen.device, n),
-            "attn": attn.attention_init(gen, cfg, n),
-            "mlp": mlp_init(gen, cfg, n)}
+    p: Params = {"norm1": rms_norm_init(cfg.d_model, gen.device, n),
+                 "norm2": rms_norm_init(cfg.d_model, gen.device, n)}
+    if cfg.block_type == RWKV6:
+        p["rwkv"] = rwkv_mod.rwkv_init(gen, cfg, n)
+        return p
+    p["attn"] = attn.attention_init(gen, cfg, n)
+    p["mlp"] = mlp_init(gen, cfg, n)
+    return p
 
 
 def layer(layers: Params, l: int) -> Params:
@@ -59,10 +73,22 @@ def cache_len(cfg: ArchConfig, seq_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
                n_layers: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed decode cache (stacked [L] leaves).  pos slots start at -1;
-    ``step`` is a host integer."""
+    ``step`` is a host integer.  An RWKV6 cache holds each layer's
+    recurrent state and no KV."""
     check_supported(cfg)
     L = n_layers or cfg.num_layers
     dt = dtype_of(cfg)
+    if cfg.block_type == RWKV6:
+        N = cfg.rwkv_head_dim
+        H = cfg.d_model // N
+        D = cfg.d_model
+        return {"step": 0,
+                "tmix_prev": torch.zeros((L, batch, 1, D), dtype=dt,
+                                         device=device),
+                "wkv": torch.zeros((L, batch, H, N, N), dtype=torch.float32,
+                                   device=device),
+                "cmix_prev": torch.zeros((L, batch, 1, D), dtype=dt,
+                                         device=device)}
     C = cache_len(cfg, seq_len)
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
     return {"step": 0,
@@ -87,13 +113,22 @@ def _ring_fill(cache_arr: torch.Tensor, vals: torch.Tensor, C: int) -> None:
 # ------------------------------------------------------------ prefill/decode
 def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags):
-    """Block over the prompt; returns (x, (k, v))."""
+    """Block over the prompt; returns (x, per-layer cache entries)."""
+    if cfg.block_type == RWKV6:
+        prev, st, _ = rwkv_mod.rwkv_state_init(cfg, x.shape[0], x.device,
+                                               x.dtype)
+        xn = rms_norm(p["norm1"], x, cfg.norm_eps)
+        h, tprev, st = rwkv_mod.time_mix(p["rwkv"], cfg, xn, prev, st, flags)
+        x = x + h
+        xn2 = rms_norm(p["norm2"], x, cfg.norm_eps)
+        h, cprev = rwkv_mod.channel_mix(p["rwkv"], cfg, xn2, prev)
+        return x + h, {"tmix_prev": tprev, "wkv": st, "cmix_prev": cprev}
     xn = rms_norm(p["norm1"], x, cfg.norm_eps)
-    a, kv = attn.attn_forward(p["attn"], cfg, xn, positions, causal=True,
-                              flags=flags, return_kv=True)
+    a, (k, v) = attn.attn_forward(p["attn"], cfg, xn, positions, causal=True,
+                                  flags=flags, return_kv=True)
     x = x + a
     y = mlp_apply(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
-    return x + y, kv
+    return x + y, {"k": k, "v": v}
 
 
 def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -103,28 +138,46 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     check_supported(cfg)
     S = x.shape[1]
     new_cache = dict(cache)
-    new_cache["k"] = torch.zeros_like(cache["k"])
-    new_cache["v"] = torch.zeros_like(cache["v"])
-    C = cache["k"].shape[2]
+    keys = _layer_keys(cfg)
+    for key in keys:
+        new_cache[key] = torch.zeros_like(cache[key])
     for l in range(num_layers(layers)):
-        x, (k, v) = block_prefill(layer(layers, l), cfg, x, positions, flags)
-        _ring_fill(new_cache["k"][l], k, C)     # in place
-        _ring_fill(new_cache["v"][l], v, C)     # in place
+        x, entries = block_prefill(layer(layers, l), cfg, x, positions, flags)
+        for key in keys:
+            if key in ("k", "v"):
+                _ring_fill(new_cache[key][l], entries[key],
+                           cache[key].shape[2])           # in place
+            else:
+                new_cache[key][l] = entries[key]          # in place
     new_cache["step"] = S
-    pos = cache["pos"].clone()
-    _ring_fill(pos, positions.to(torch.int32), pos.shape[1])
-    new_cache["pos"] = pos
+    if "pos" in cache:
+        pos = cache["pos"].clone()
+        _ring_fill(pos, positions.to(torch.int32), pos.shape[1])
+        new_cache["pos"] = pos
     return x, new_cache
 
 
 def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 pos_slots: torch.Tensor, step: int, flags: Flags):
-    """One-token decode for one layer; updates the layer's caches in
+                 layer_cache: Dict[str, torch.Tensor],
+                 pos_slots: Optional[torch.Tensor], step: int, flags: Flags):
+    """One-token decode for one layer; updates the layer's cache views in
     place.  Returns x."""
+    if cfg.block_type == RWKV6:
+        xn = rms_norm(p["norm1"], x, cfg.norm_eps)
+        h, tprev, wkv = rwkv_mod.time_mix(
+            p["rwkv"], cfg, xn, layer_cache["tmix_prev"],
+            layer_cache["wkv"], flags, decode=True)
+        x = x + h
+        xn2 = rms_norm(p["norm2"], x, cfg.norm_eps)
+        h, cprev = rwkv_mod.channel_mix(p["rwkv"], cfg, xn2,
+                                        layer_cache["cmix_prev"])
+        layer_cache["tmix_prev"].copy_(tprev)
+        layer_cache["wkv"].copy_(wkv)
+        layer_cache["cmix_prev"].copy_(cprev)
+        return x + h
     xn = rms_norm(p["norm1"], x, cfg.norm_eps)
-    a, _, _, _ = attn.attn_decode(p["attn"], cfg, xn, cache_k, cache_v,
-                                  pos_slots, step, flags)
+    a, _, _, _ = attn.attn_decode(p["attn"], cfg, xn, layer_cache["k"],
+                                  layer_cache["v"], pos_slots, step, flags)
     x = x + a
     y = mlp_apply(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
     return x + y
@@ -136,11 +189,13 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     updated in place and returned."""
     check_supported(cfg)
     step = int(cache["step"])
+    keys = _layer_keys(cfg)
     # every layer writes the same new position into its slot (in place),
     # so the one shared pos tensor serves them all
     for l in range(num_layers(layers)):
-        x = block_decode(layer(layers, l), cfg, x, cache["k"][l],
-                         cache["v"][l], cache["pos"], step, flags)
+        x = block_decode(layer(layers, l), cfg, x,
+                         {key: cache[key][l] for key in keys},
+                         cache.get("pos"), step, flags)
     cache["step"] = step + 1
     return x, cache
 
@@ -157,9 +212,11 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
 
     Each layer reads the strided views ``pool[:, l, 0]`` / ``pool[:, l, 1]``
     (no restacking of the pool) and the new token's K/V is scattered into
-    each sequence's tail page in place.  Returns x.
+    each sequence's tail page in place.  Returns x.  DENSE blocks only.
     """
-    check_supported(cfg)
+    if cfg.block_type != DENSE:
+        raise NotImplementedError(
+            f"{cfg.name}: paged decode covers DENSE blocks only")
     for l in range(num_layers(layers)):
         lp = layer(layers, l)
         xn = rms_norm(lp["norm1"], x, cfg.norm_eps)

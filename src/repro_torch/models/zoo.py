@@ -1,6 +1,7 @@
 """Model facade: init / prefill / decode_step / decode_step_paged.
 
-Port of ``repro.models.zoo`` for DENSE decoder-only models.  A ``Model``
+Port of ``repro.models.zoo`` for DENSE and RWKV6 decoder-only models.  A
+``Model``
 owns its device: it runs on CUDA by default and raises when no card is
 present, unless built with ``device="cpu"``.  Methods are functions of
 (params, inputs) as in the reference; caches and pools are updated in
@@ -81,8 +82,8 @@ class Model:
 
     def supports_paged_decode(self) -> bool:
         """Whether :meth:`decode_step_paged` covers this architecture (the
-        paged pool keeps absolute positions, so SWA ring caches stay on
-        the dense slot path)."""
+        paged pool keeps absolute positions, so SWA ring caches and RWKV6's
+        recurrent state stay on the dense slot path)."""
         cfg = self.cfg
         return (not cfg.encoder_decoder and cfg.sliding_window is None
                 and cfg.block_type == DENSE)

@@ -200,9 +200,13 @@ class PagedKVStore:
         a page boundary opens a fresh page (nothing to fetch); otherwise
         the partially-filled tail page is read-modified-written."""
         seq = self._seqs[sid]
-        if seq.length == 0 or seq.length % self.page_tokens == 0:
+        tail = seq.length // self.page_tokens
+        if seq.length % self.page_tokens == 0 or tail >= len(seq.pages):
+            # a fresh page, or a sequence that stores no KV (RWKV6 keeps
+            # its state in the dense slot; the reference indexes past the
+            # empty page list here and raises IndexError)
             return []
-        return [seq.pages[seq.length // self.page_tokens]]
+        return [seq.pages[tail]]
 
     def schedule_prefetch(self, pages: List[int]) -> None:
         """Feed a batch round's worth of scheduled page accesses to the

@@ -39,7 +39,8 @@ def _pair(jax_params, use_kernels=False):
                          Flags(remat=False, use_kernels=use_kernels),
                          device="cpu")
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                       jax_params))
+                                                       jax_params),
+                                                       device="cpu")
     return jmodel, tmodel, tparams
 
 

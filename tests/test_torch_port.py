@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,7 +30,7 @@ COPIES = [
     "core/placement.py", "core/metrics.py", "core/policy.py",
     "core/overlap.py", "core/faults.py", "core/fabric.py", "core/api.py",
     "core/client.py", "qos/arbiter.py", "qos/slo.py", "rack/topology.py",
-    "models/flags.py",
+    "models/flags.py", "configs/rwkv6_7b.py",
 ]
 
 
@@ -49,7 +50,7 @@ def test_config_base_differs_only_in_load_all():
     assert strip((PORT / "configs/base.py").read_text()) == \
         strip(_rewritten("configs/base.py"))
     from repro_torch.configs.base import list_configs
-    assert list_configs() == ("qwen2-1.5b",)
+    assert list_configs() == ("qwen2-1.5b", "rwkv6-7b")
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
@@ -91,6 +92,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from repro_torch.configs.base import get_config
     from repro_torch.core import TierExecutor, system_for
+    from repro_torch.interop import params_from_numpy, tensor_from_numpy
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import Model, build_model
     from repro_torch.serve import EngineConfig, ServeEngine
@@ -99,6 +101,13 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
         Model(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TierExecutor()
+    tree = {"embed": {"table": np.zeros((4, 2), np.float32)}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tensor_from_numpy(tree["embed"]["table"])
+    assert params_from_numpy(tree, device="cpu")["embed"]["table"].device \
+        == torch.device("cpu")
     model = build_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

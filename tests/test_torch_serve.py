@@ -147,7 +147,8 @@ def _serve_pair(jax_params, prompts, max_new, use_kernels=False, **ecfg):
         build_model(get_config("qwen2-1.5b").reduced(),
                     Flags(remat=False, use_kernels=use_kernels),
                     device="cpu"),
-        params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params)),
+        params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_params),
+                          device="cpu"),
         system_for("dev0", host_id="h0", pool_gib=1, page_bytes=4096),
         EngineConfig(**cfg_kw), device_id="dev0", device="cpu")
     before = ops.dispatch_counts()["paged_attention_decode"]
@@ -208,7 +209,8 @@ def test_dense_and_paged_decode_agree_in_the_port(jax_params):
     rng = np.random.default_rng(9)
     prompts = [rng.integers(1, 100, n).astype(np.int32) for n in (7, 12)]
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                      jax_params))
+                                                      jax_params),
+                                                      device="cpu")
     out = []
     for paged in (False, True):
         eng = ServeEngine(
