@@ -8,17 +8,28 @@ Phases (any failure raises and the script exits non-zero):
      builds every kernel of the main paths from ``src/repro_torch/kernels/
      csrc`` (one process per source, all started together);
   2. kernels against their plain PyTorch versions on the card, at the
-     serving paths' full-width shapes (f32 within 1e-4, bf16 within 2e-2:
-     the paged plain version rounds p to bf16, the kernel does not) and at
-     a small shape with the edge cases (length 0, lengths on a page
-     boundary, unmapped pages holding garbage, a mixed batch,
-     ``scale_override=0.0``; a window, GQA and a ragged S for flash); the
-     WKV6 scan within rtol = atol = 2e-4 at full width (bf16 and f32) and
-     on its edge cases (a single chunk, a ragged S, strong decay, w with
-     exact zeros, a batch with a nonzero initial state, head size 16);
-     then each kernel's time beside its plain version's, its bound and,
-     for flash, ``scaled_dot_product_attention`` as a yardstick the port
-     never calls;
+     serving paths' full-width shapes (f32 within 1e-4, bf16 within 2e-2,
+     absolute: the paged plain version rounds p to bf16 and the paged
+     kernel does not; the flash kernel rounds p to bf16 and its plain
+     version does not; each check also prints the largest |plain|, since
+     one bf16 step passes 2e-2 from magnitude 4 up), on the paged split
+     plan's edges at full width (rows ending inside a split, trailing
+     splits with no live token, every page live, a page table of 13
+     columns over 7 splits, B = 1 at 512 tokens), at a small shape with
+     the edge cases (length 0, lengths on a page boundary, unmapped pages
+     holding garbage, a mixed batch, ``scale_override=0.0``), and for
+     flash on S not a multiple of its tiles, windows across tile edges,
+     B = 2, every head_dim route (16, 32, 64, 96, 128, 144, 256) and a
+     non-causal case; the WKV6 scan within rtol = atol = 2e-4 at full
+     width (bf16 and f32) and on its edge cases (a single chunk, a ragged
+     S, strong decay, w with exact zeros, a batch with a nonzero initial
+     state, head size 16); then each kernel timed at the main path's
+     shapes two ways: ``ms``, a call as issued from Python (what a serve
+     round pays, the wrapper's host time included), and ``device_ms``, a
+     CUDA graph of calls replayed (the kernels' device time alone); beside
+     its plain version's time, its bound and, for flash,
+     ``scaled_dot_product_attention`` timed both ways as a yardstick the
+     port never calls;
   3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
@@ -34,12 +45,20 @@ Phases (any failure raises and the script exits non-zero):
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --against OTHER_CHECKOUT
+
+times the paged and flash wrappers of another checkout of the port (for
+example the parent commit, unpacked with ``git archive``) and of this one
+at the main path's bf16 shapes, both ways, in four fresh processes (other,
+this, this, other), and prints one JSON line per turn.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +73,9 @@ KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan")
 #: the kernels each served model's main path launches
 QWEN_KERNELS = ("paged_attention", "flash_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
+#: qwen2-1.5b's attention (H, KV, hd) and its serve phase's page tokens T
+#: and page-table width MP (max_seq_len 512 / 32)
+ATTN_SHAPE = (12, 2, 128, 32, 16)
 
 
 def card_line() -> str:
@@ -64,29 +86,85 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 30, repeats: int = 5, warmup: int = 3) -> float:
+    """Time per call as issued from Python (the host's issue time where it
+    is longer than the device's): the median of ``repeats`` runs of
+    ``iters`` calls, since one stall of a shared host skews a whole run."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[repeats // 2]
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two events, so the host's dispatch
+    time (Python, ctypes) drops out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: a launcher may set a kernel attribute while being captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def check(name: str, err: float, tol: float) -> None:
-    print(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
+def check(name: str, got, want, tol: float) -> float:
+    """Hold got to want within ``tol``, absolute; returns the max abs err.
+    Prints the largest |want| beside it: bf16 rounds a value of magnitude
+    m in steps of up to m / 128, so one step passes 2e-2 from m = 4 up."""
+    err = max_err(got, want)
+    print(f"  {name}: max_abs_err={err:.3e} (tol {tol:g}), "
+          f"max|plain|={float(want.float().abs().max()):.3g}")
     if not err <= tol:
         raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    return err
+
+
+def print_ptxas(name: str, log: str) -> None:
+    """One line per kernel instantiation (its mangled name, which carries
+    the template arguments): registers, shared memory and spills, from
+    ``nvcc -Xptxas -v``."""
+    entry, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}; "
+                  f"{spill}")
 
 
 # ----------------------------------------------------------------- phase 2
@@ -111,6 +189,26 @@ def paged_inputs(torch, gen, dtype, B, H, KV, hd, T, MP, lengths, L=3,
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def main_path_inputs(torch, serve_lengths, S):
+    """The bf16 inputs the timings use, from a fresh seed (the same in
+    every process): the paged kernel's decode batch of the serve phase,
+    as per-layer views of a 28-layer pool, and flash's longest prompt."""
+    H, KV, hd, T, MP = ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = torch.bfloat16
+    paged = paged_inputs(torch, gen, dt, len(serve_lengths), H, KV, hd, T, MP,
+                         serve_lengths, L=28, layer=5)
+    flash = tuple(torch.randn((1, S, h, hd), generator=gen,
+                              device="cuda").to(dt) for h in (H, KV, KV))
+    return paged, flash
+
+
+def both_times(fn) -> dict:
+    """``ms``, a call as issued from Python, and ``device_ms``, the
+    device time of a call from a replayed CUDA graph."""
+    return {"ms": time_ms(fn), "device_ms": graph_ms(fn)}
+
+
 def kernel_phase(torch, serve_lengths, prompt_max):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -118,20 +216,41 @@ def kernel_phase(torch, serve_lengths, prompt_max):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    H, KV, hd, T, MP = 12, 2, 128, 32, 16
+    H, KV, hd, T, MP = ATTN_SHAPE
+    sms = pa.sm_count(torch.device("cuda", 0))
+
+    def plan(B, mp):
+        return pa.split_plan(B, KV, mp, G=H // KV, sm_count=sms)
+
     errs = {"paged_attention": 0.0, "flash_attention": 0.0}
-    print("phase 2: kernels against their plain versions")
+    print(f"phase 2: kernels against their plain versions ({sms} SMs)")
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         # paged: the decode batch of the serve phase, full width
         args = paged_inputs(torch, gen, dtype, len(serve_lengths), H, KV, hd,
                             T, MP, serve_lengths, L=28, layer=5)
-        e = max_err(pa.paged_attention_cuda(*args),
-                    pa.paged_attention_plain(*args))
-        check(f"paged {tag} full width B={len(serve_lengths)}", e,
-              tol[dtype])
+        e = check(f"paged {tag} full width B={len(serve_lengths)} plan="
+                  f"{plan(len(serve_lengths), MP)}",
+                  pa.paged_attention_cuda(*args),
+                  pa.paged_attention_plain(*args), tol[dtype])
         if dtype == torch.bfloat16:
             errs["paged_attention"] = e
+        # paged at full width, the split plan's edges: rows that end inside
+        # a split of two pages and trailing splits with no live token (B 16
+        # gives 8 splits of 2 pages), every page of MP live, MP = 13 not a
+        # multiple of its 7 splits, and B = 1 at max_seq_len 512 (16 pages)
+        for B, mp, lengths in ((16, 16, [512, 33, 0, 1] * 3 + [500, 95, 64,
+                                                               2]),
+                               (16, 13, [13 * T, 37, 0, 70] * 4),
+                               (1, 16, [512]), (1, 16, [301])):
+            a = paged_inputs(torch, gen, dtype, B, H, KV, hd, T, mp, lengths)
+            out = pa.paged_attention_cuda(*a)
+            check(f"paged {tag} full width B={B} MP={mp} plan="
+                  f"{plan(B, mp)} lengths={lengths}", out,
+                  pa.paged_attention_plain(*a), tol[dtype])
+            for b, n in enumerate(lengths):
+                if n == 0 and bool(out[b].abs().max() != 0):
+                    raise AssertionError("length-0 row is not zero")
         # paged edge cases at hd 16 (the reduced config's head_dim)
         edge = [([0, 9], None), ([8, 12], None), ([0, 4], None),
                 ([16, 1, 0, 7], None), ([13, 20], 0.0), ([3], None)]
@@ -139,34 +258,48 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             B = len(lengths)
             a = paged_inputs(torch, gen, dtype, B, 8, 2, 16, 4, 6, lengths)
             out = pa.paged_attention_cuda(*a, scale_override=so)
-            e = max_err(out, pa.paged_attention_plain(*a, scale_override=so))
-            check(f"paged {tag} hd16 lengths={lengths} scale={so}", e,
+            check(f"paged {tag} hd16 lengths={lengths} scale={so}", out,
+                  pa.paged_attention_plain(*a, scale_override=so),
                   tol[dtype])
             for b, n in enumerate(lengths):
                 if n == 0 and bool(out[b].abs().max() != 0):
                     raise AssertionError("length-0 row is not zero")
-        # flash: the longest prompt at full width, then edge cases
-        for (B, S, h, kv, d, window) in ((1, prompt_max, H, KV, hd, None),
-                                         (2, 100, 4, 1, 16, 24),
-                                         (1, 70, 6, 2, 16, None),
-                                         (1, 64, 8, 8, 64, 16)):
+        # flash: the longest prompt at full width, then edge cases: S not a
+        # multiple of the 32-row q tile or the 64-key tile, windows that
+        # cross tile edges, B = 2, head dims 16/64/128/256 and the padded
+        # ones between (32 -> 64, 96 -> 128, 144 -> 256), not causal
+        for (B, S, h, kv, d, window, causal) in (
+                (1, prompt_max, H, KV, hd, None, True),
+                (1, 100, H, KV, hd, None, True),
+                (2, 70, H, KV, hd, 40, True),
+                (1, prompt_max, H, KV, hd, 100, True),
+                (2, 100, 4, 1, 16, 24, True),
+                (1, 70, 6, 2, 16, None, True),
+                (1, 64, 8, 8, 64, 16, True),
+                (2, 130, 4, 2, 64, None, True),
+                (1, 100, 4, 2, 32, None, True),
+                (1, 100, 4, 2, 96, 50, True),
+                (1, 90, 4, 1, 144, None, True),
+                (1, 100, 4, 1, 256, None, True),
+                (1, 100, 4, 2, 64, None, False)):
             q = torch.randn((B, S, h, d), generator=gen, device="cuda")
             k = torch.randn((B, S, kv, d), generator=gen, device="cuda")
             v = torch.randn((B, S, kv, d), generator=gen, device="cuda")
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-            e = max_err(fa.flash_attention_cuda(q, k, v, window=window),
-                        fa.flash_attention_plain(q, k, v, window=window))
-            check(f"flash {tag} B={B} S={S} H={h} KV={kv} hd={d} "
-                  f"window={window}", e, tol[dtype])
-            if dtype == torch.bfloat16 and S == prompt_max:
+            e = check(f"flash {tag} B={B} S={S} H={h} KV={kv} hd={d} "
+                      f"window={window} causal={causal}",
+                      fa.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window),
+                      fa.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window), tol[dtype])
+            if dtype == torch.bfloat16 and S == prompt_max and \
+                    window is None:
                 errs["flash_attention"] = e
     torch.cuda.synchronize()
 
     # timing at the main path's shapes, bf16
-    dt = torch.bfloat16
     esz = 2
-    args = paged_inputs(torch, gen, dt, len(serve_lengths), H, KV, hd, T, MP,
-                        serve_lengths, L=28, layer=5)
+    args, (q, k, v) = main_path_inputs(torch, serve_lengths, prompt_max)
     live = sum(serve_lengths)
     B = len(serve_lengths)
     pa_bytes = (2 * live * KV * hd + 2 * B * H * hd) * esz \
@@ -174,47 +307,47 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     pa_flops = 4 * live * H * hd
     pa_bound = max(pa_bytes / HBM_BYTES_PER_S,
                    pa_flops / PEAK_FLOPS["bfloat16"]) * 1e3
-    pa_ms = time_ms(lambda: pa.paged_attention_cuda(*args))
+    pa_times = both_times(lambda: pa.paged_attention_cuda(*args))
     pa_plain_ms = time_ms(lambda: pa.paged_attention_plain(*args))
 
     S = prompt_max
-    q = torch.randn((1, S, H, hd), generator=gen, device="cuda").to(dt)
-    k = torch.randn((1, S, KV, hd), generator=gen, device="cuda").to(dt)
-    v = torch.randn((1, S, KV, hd), generator=gen, device="cuda").to(dt)
     fa_flops = 4 * (S * (S + 1) // 2) * hd * H
     fa_bytes = (2 * S * H * hd + 2 * S * KV * hd) * esz
     fa_bound_flops = fa_flops / PEAK_FLOPS["bfloat16"]
     fa_bound_bytes = fa_bytes / HBM_BYTES_PER_S
     fa_bound = max(fa_bound_flops, fa_bound_bytes) * 1e3
-    fa_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v))
+    fa_times = both_times(lambda: fa.flash_attention_cuda(q, k, v))
     fa_plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    lib_err = max_err(F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
-        fa.flash_attention_plain(q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib = both_times(sdpa)
+    lib_err = max_err(sdpa().transpose(1, 2),
+                      fa.flash_attention_plain(q, k, v))
     print(f"  sdpa vs flash plain bf16 S={S}: max_abs_err={lib_err:.3e}")
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:106",
          "launches": 0, "max_abs_err": errs["paged_attention"],
-         "ms": pa_ms, "plain_ms": pa_plain_ms, "bound_ms": pa_bound,
+         "ms": pa_times["ms"], "plain_ms": pa_plain_ms, "bound_ms": pa_bound,
          "bound_by": ("bytes" if pa_bytes / HBM_BYTES_PER_S
                       >= pa_flops / PEAK_FLOPS["bfloat16"]
                       else "operations"),
-         "library_ms": None,
+         "library_ms": None, "device_ms": pa_times["device_ms"],
          "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
-                  f"live_tokens={live} bf16"},
+                  f"live_tokens={live} bf16, plan {plan(B, MP)}"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:94",
          "launches": 0, "max_abs_err": errs["flash_attention"],
-         "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
+         "ms": fa_times["ms"], "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
          "bound_by": ("operations" if fa_bound_flops >= fa_bound_bytes
                       else "bytes"),
-         "library_ms": lib_ms,
+         "library_ms": lib["ms"], "device_ms": fa_times["device_ms"],
+         "library_device_ms": lib["device_ms"],
          "shape": f"B=1 S={S} H={H} KV={KV} hd={hd} causal bf16"},
     ]
 
@@ -303,15 +436,15 @@ def rwkv_kernel_phase(torch, prompt_max):
     nbytes, flops = wkv_cost(1, prompt_max, H, N, 2)
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = flops / PEAK_FLOPS["float32"]
-    ms = time_ms(lambda: rw.rwkv6_scan_cuda(*args))
+    times = both_times(lambda: rw.rwkv6_scan_cuda(*args))
     plain_ms = time_ms(lambda: rw.rwkv6_scan_plain(*args), iters=10)
     return {"name": "rwkv6_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
             "replaces": "src/repro/kernels/rwkv6_scan.py:78",
-            "launches": 0, "max_abs_err": err, "ms": ms,
+            "launches": 0, "max_abs_err": err, "ms": times["ms"],
             "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "device_ms": times["device_ms"],
             "shape": f"B=1 S={prompt_max} H={H} N={N} r/k/v bf16, w f32"}
 
 
@@ -563,8 +696,7 @@ def reference_phase(torch, arch, lengths, max_seq_len):
                               model.init_cache(1, max_seq_len))
         logits.append(lg.cpu())
     print(f"phase 5: reduced {arch} f32, card against CPU plain path")
-    check(f"prefill logits S={tok.shape[1]}", max_err(logits[1], logits[0]),
-          1e-4)
+    check(f"prefill logits S={tok.shape[1]}", logits[1], logits[0], 1e-4)
     if streams[0] != streams[1] or op[0] != op[1]:
         raise AssertionError(f"token streams or link bytes differ: "
                              f"{streams} {op}")
@@ -577,7 +709,67 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
-def main() -> int:
+def workload():
+    """The serve phases' requests: prompt lengths, new tokens per request
+    (16..32) and the decode batch's lengths mid-run (every prompt plus
+    half its new tokens)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = [16, 256, 48, 200, 96, 130, 24, 160]
+    news = [int(n) for n in rng.integers(16, 33, len(lens))]
+    serve_lengths = [n + m // 2 for n, m in zip(lens, news)]
+    return lens, news, serve_lengths, rng
+
+
+# ------------------------------------------------------ --against OTHER_DIR
+def time_tree(root: Path) -> int:
+    """Build the paged and flash kernels of the checkout at ``root`` and
+    print their wrappers' times at the main path's shapes as one JSON
+    line.  Runs in a process of its own, in which main() put ``root``'s
+    sources first on the path before anything imported the port."""
+    import torch
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    if not Path(pa.__file__).resolve().is_relative_to(root.resolve()):
+        raise AssertionError(f"imported {pa.__file__}, not {root}'s")
+    cuda_build.build(("paged_attention", "flash_attention"))
+    lens, _, serve_lengths, _ = workload()
+    paged, flash = main_path_inputs(torch, serve_lengths, max(lens))
+    print(json.dumps({
+        "paged_attention": both_times(
+            lambda: pa.paged_attention_cuda(*paged)),
+        "flash_attention": both_times(
+            lambda: fa.flash_attention_cuda(*flash))}))
+    return 0
+
+
+def against(other: Path) -> int:
+    """Time another checkout's wrappers and this one's in turns other,
+    this, this, other, each in a fresh process, and print each turn."""
+    print(card_line())
+    for root in (other, ROOT, ROOT, other):
+        run = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--time-tree",
+             str(root)], capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return 1
+        turn = json.loads(run.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": str(root), **turn}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--against", type=Path, metavar="OTHER_CHECKOUT",
+                        help="only time this checkout's paged and flash "
+                        "wrappers beside another's")
+    parser.add_argument("--time-tree", type=Path, help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.time_tree is not None:
+        sys.path.insert(0, str(args.time_tree / "src"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -588,6 +780,10 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not here ({exc})", file=sys.stderr)
         return 1
+    if args.time_tree is not None:
+        return time_tree(args.time_tree)
+    if args.against is not None:
+        return against(args.against)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
@@ -599,18 +795,11 @@ def main() -> int:
     print(f"  built {', '.join(KERNEL_SOURCES)} in "
           f"{time.monotonic() - t:.1f}s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        print_ptxas(name, log)
 
-    # the serve phases' requests: prompts of 16..256 tokens, 16..32 new
-    rng = np.random.default_rng(0)
-    lens = [16, 256, 48, 200, 96, 130, 24, 160]
-    news = [int(n) for n in rng.integers(16, 33, len(lens))]
+    lens, news, serve_lengths, rng = workload()
     prompts = [(rng.integers(0, 151936, n).astype(np.int32), m)
                for n, m in zip(lens, news)]
-    # the decode batch mid-run: every prompt plus half its new tokens
-    serve_lengths = [n + m // 2 for n, m in zip(lens, news)]
 
     kernels = kernel_phase(torch, serve_lengths, max(lens))
     kernels.append(rwkv_kernel_phase(torch, max(lens)))

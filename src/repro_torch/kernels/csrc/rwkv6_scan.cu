@@ -30,10 +30,9 @@
 // grid is B * H * N/16 blocks: 256 at full width.  The chunked form on
 // tensor cores is the later, fast design.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <float.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -41,11 +40,6 @@ constexpr int kCols = 16;                 // value columns per block
 constexpr int kParts = 4;                 // lanes sharing one column
 constexpr int kThreads = kCols * kParts;  // 64
 constexpr int kTile = 16;                 // tokens staged per tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename scalar_t, int N>
 __global__ void __launch_bounds__(kThreads)

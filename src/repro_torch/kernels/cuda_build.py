@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
-``ctypes``.  Libraries are named by a hash of their source, built at first
-use into ``build/kernels/`` at the repository root (listed in
-``.gitignore``), and rebuilt whenever the source changes.  Nothing here
+``ctypes``.  Libraries are named by a hash of their source and of every
+header in ``csrc/`` (``common.cuh``), built at first use into
+``build/kernels/`` at the repository root (listed in ``.gitignore``), and
+rebuilt whenever the source or a header changes.  Nothing here
 runs at import time: the CPU tests import every module of the port.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES` (one per
@@ -60,8 +61,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

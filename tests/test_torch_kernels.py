@@ -19,11 +19,13 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.paged_attention import paged_attention_xla
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import cuda_build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+from repro_torch.kernels.paged_attention import (MAX_G,
+                                                 paged_attention_cuda,
+                                                 paged_attention_plain,
+                                                 split_plan)
 
 # f32 on the CPU: both sides sum the same products in different orders
 PAGED_TOL = 1e-5
@@ -198,6 +200,145 @@ def test_flash_ragged_tail_is_finite_where_the_pallas_kernel_is_not():
     np.testing.assert_allclose(got, oracle, rtol=FLASH_TOL, atol=FLASH_TOL)
 
 
+@pytest.mark.parametrize("B,KV,MP", [
+    (8, 2, 16),      # the decode batch: one page per split, 256 blocks
+    (1, 2, 16),      # B = 1 at max_seq_len 512
+    (16, 2, 16),     # two pages per split
+    (16, 2, 13),     # MP not a multiple of the split count
+    (3, 1, 1),       # MP = 1
+    (64, 8, 64),     # a grid full without splitting
+    (1, 1, 512),     # a long page table
+    (5, 3, 7),
+])
+def test_split_plan_covers_each_column_once(B, KV, MP):
+    """Split s takes columns [s * per, min((s + 1) * per, MP)), as the
+    kernel reads them: every column once, no split without a column."""
+    n, per = split_plan(B, KV, MP)
+    cols = [c for s in range(n) for c in range(s * per, min((s + 1) * per,
+                                                            MP))]
+    assert cols == list(range(MP))
+    assert n >= 1 and per >= 1 and (n - 1) * per < MP
+    if B * KV * MP <= 132:       # spreading over the SMs wins: 1 page each
+        assert (n, per) == (MP, 1)
+
+
+@pytest.mark.parametrize("sm_count", [132, 114, 8])
+@pytest.mark.parametrize("B,KV,G,MP", [
+    (8, 2, 6, 16), (8, 2, 16, 16), (1, 4, 24, 13), (16, 2, 6, 1),
+    (3, 1, 9, 64),
+])
+def test_split_plan_follows_the_card_and_the_head_chunks(sm_count, B, KV,
+                                                         G, MP):
+    """The plan covers every column once on any SM count, and counts the
+    kernel's head chunks (MAX_G query heads a block) in its grid: more
+    chunks or fewer SMs never ask for more splits."""
+    n, per = split_plan(B, KV, MP, G=G, sm_count=sm_count)
+    cols = [c for s in range(n) for c in range(s * per, min((s + 1) * per,
+                                                            MP))]
+    assert cols == list(range(MP))
+    assert (n, per) == split_plan(B, KV * -(-G // MAX_G), MP,
+                                  sm_count=sm_count)
+    n_wide, _ = split_plan(B, KV, MP, G=1, sm_count=sm_count)
+    n_big, _ = split_plan(B, KV, MP, G=G, sm_count=2 * sm_count)
+    assert n <= n_wide and n <= n_big
+    if B * KV * -(-G // MAX_G) * MP <= sm_count:
+        assert (n, per) == (MP, 1)
+
+
+def _split_partials(q, kp, vp, table, lengths, n, per):
+    """The split kernel's arithmetic, in f32: per split s and head, the
+    max m, the sum l of e^(s - m) and acc = sum e^(s - m) v over the live
+    tokens of its columns; m = -inf, l = 0, acc = 0 where none is live."""
+    B, H, hd = q.shape
+    _, T, KV, _ = kp.shape
+    MP = table.shape[1]
+    qg = q.reshape(B, KV, H // KV, hd)
+    ms, ls, accs = [], [], []
+    for s in range(n):
+        c0, c1 = s * per, min((s + 1) * per, MP)
+        cols = table[:, c0:c1]
+        k = kp[cols.clamp(min=0).long()].reshape(B, -1, KV, hd)
+        v = vp[cols.clamp(min=0).long()].reshape(B, -1, KV, hd)
+        pos = torch.arange(c0 * T, c1 * T)[None, :]
+        valid = (pos < lengths[:, None]) & \
+            torch.repeat_interleave(cols >= 0, T, dim=1)
+        sc = torch.einsum("bkgh,bskh->bkgs", qg, k) / np.sqrt(hd)
+        sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
+        m = sc.amax(-1)
+        e = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m.reshape(B, H))
+        ls.append(e.sum(-1).reshape(B, H))
+        accs.append(torch.einsum("bkgs,bskh->bkgh", e, v).reshape(B, H, hd))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def _combine(m, l, acc):
+    """The combine kernel: log-sum-exp over splits, empty splits skipped,
+    zeros where every split is empty."""
+    M = m.amax(-1, keepdim=True)
+    w = torch.where(torch.isfinite(m), torch.exp(m - M), 0.0)
+    L = (l * w).sum(-1, keepdim=True)
+    out = (acc * w[..., None]).sum(-2)
+    return torch.where(L > 0, out / torch.where(L > 0, L, 1.0), 0.0)
+
+
+@pytest.mark.parametrize("B,KV,MP,lengths", [
+    # 8 splits of 2 pages: rows ending mid-split (5, 9, 19), a length-0 row,
+    # trailing splits with no live token, a row with every page live
+    (16, 2, 16, [5, 0, 9, 64, 19, 1, 0, 33, 64, 2, 40, 0, 8, 17, 3, 60]),
+    # 7 splits of 2 pages over 13 columns: the last split has one
+    (16, 2, 13, [52, 0, 37, 5] * 4),
+    # one split of many pages (a large batch fills the grid alone)
+    (40, 4, 9, [0, 36, 13] * 13 + [7]),
+    # one page per split, as on the decode path
+    (8, 2, 16, [3, 64, 0, 21, 50, 7, 1, 30]),
+])
+def test_split_combine_mirror_matches_plain(B, KV, MP, lengths):
+    """Partials per split, merged by log-sum-exp, give the plain version's
+    output; unmapped pages (-1, mid-row too) hold garbage that must not
+    leak."""
+    T, G, hd = 4, 3, 16
+    rng = np.random.default_rng(B + MP)
+    lengths = np.asarray(lengths, np.int32)
+    pages = -(-lengths // T)
+    P = int(pages.sum()) + 2
+    table = np.full((B, MP), -1, np.int32)
+    perm = iter(rng.permutation(P - 2))
+    for b in range(B):
+        for i in range(pages[b]):
+            table[b, i] = next(perm)
+        if pages[b] > 2 and b % 3 == 0:
+            table[b, 1] = -1          # an unmapped page inside a live row
+    q, kp, vp, table, lens = _torch(*_paged_inputs(
+        B, B, KV * G, KV, hd, P, T, lengths, table))
+    kp[-2:] = 1e4
+    vp[-2:] = 1e4
+    n, per = split_plan(B, KV, MP)
+    m, l, acc = _split_partials(q, kp, vp, table, lens, n, per)
+    got = _combine(m, l, acc)
+    want = paged_attention_plain(q, kp, vp, table, lens)
+    torch.testing.assert_close(got, want, rtol=PAGED_TOL, atol=PAGED_TOL)
+    dead = torch.isinf(m)
+    assert dead.any() and (l[dead] == 0).all() and (acc[dead] == 0).all()
+    for b in np.nonzero(lengths == 0)[0]:
+        assert torch.equal(got[b], torch.zeros_like(got[b]))
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """An edit to a header in csrc/ renames every library, so a stale
+    build is never loaded."""
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    first = cuda_build._lib_path("a")
+    assert cuda_build._lib_path("a") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = cuda_build._lib_path("a")
+    assert second != first and second.name.startswith("liba-")
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edit\n')
+    assert cuda_build._lib_path("a") not in (first, second)
+
+
 def test_dispatchers_count_calls_and_take_the_plain_path_on_cpu():
     before = ops.dispatch_counts()
     inputs = _paged_inputs(3, 2, 4, 2, 16, 8, 4, [5, 9],
@@ -234,22 +375,79 @@ def cuda_device():
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
     """On the card: both kernels against their plain versions (bf16 is
-    looser: the paged plain version rounds p to bf16, the kernel not)."""
-    lengths, table = _random_table(5, 3, 16, 8, 4)
-    q, kp, vp, table, lengths = (t.to(cuda_device) for t in _torch(
-        *_paged_inputs(5, 3, 12, 2, 128, 16, 8, lengths, table)))
-    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-    torch.testing.assert_close(
-        paged_attention_cuda(q, kp, vp, table, lengths).float(),
-        paged_attention_plain(q, kp, vp, table, lengths).float(),
-        rtol=tol, atol=tol)
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q = torch.randn(1, 100, 12, 128, generator=g, device=cuda_device)
-    k = torch.randn(1, 100, 2, 128, generator=g, device=cuda_device)
-    v = torch.randn(1, 100, 2, 128, generator=g, device=cuda_device)
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    for window in (None, 24):
+    looser: the paged plain version rounds p to bf16 and the kernel does
+    not; the flash kernel rounds p to bf16 and its plain version does
+    not).  Paged on the split plan's edges (rows ending inside a split of
+    two pages, trailing empty splits, every page live, MP = 13 over 7
+    splits, B = 1 at 16 pages); flash on S off its tiles, windows across
+    tile edges, B = 2, each head_dim route and a non-causal case."""
+    for seed, (B, MP, T, lengths) in enumerate((
+            (3, 4, 8, None),
+            (16, 16, 8, [128, 9, 0, 1] * 3 + [120, 23, 16, 2]),
+            (16, 13, 8, [104, 37, 0, 70] * 4),
+            (1, 16, 32, [512]), (1, 16, 32, [301]))):
+        if lengths is None:
+            lengths, table = _random_table(5, B, 16, T, MP)
+        else:
+            pages = [-(-n // T) for n in lengths]
+            table = np.full((B, MP), -1, np.int32)
+            perm = iter(range(sum(pages)))
+            for b in range(B):
+                for i in range(pages[b]):
+                    table[b, i] = next(perm)
+        P = int(table.max()) + 3
+        q, kp, vp, table, lens = (t.to(cuda_device) for t in _torch(
+            *_paged_inputs(seed, B, 12, 2, 128, P, T, lengths, table)))
+        kp[-2:] = 1e4
+        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
         torch.testing.assert_close(
-            flash_attention_cuda(q, k, v, window=window).float(),
-            flash_attention_plain(q, k, v, window=window).float(),
+            paged_attention_cuda(q, kp, vp, table, lens).float(),
+            paged_attention_plain(q, kp, vp, table, lens).float(),
             rtol=tol, atol=tol)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for B, S, H, KV, hd, window, causal in (
+            (1, 100, 12, 2, 128, None, True), (1, 100, 12, 2, 128, 24, True),
+            (2, 70, 12, 2, 128, 40, True), (1, 256, 12, 2, 128, 100, True),
+            (2, 100, 4, 1, 16, 24, True), (1, 64, 8, 8, 64, 16, True),
+            (1, 100, 4, 2, 32, None, True), (1, 100, 4, 2, 96, 50, True),
+            (1, 90, 4, 1, 144, None, True), (1, 100, 4, 1, 256, None, True),
+            (1, 100, 4, 2, 64, None, False)):
+        q = torch.randn(B, S, H, hd, generator=g, device=cuda_device)
+        k = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)
+        v = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        torch.testing.assert_close(
+            flash_attention_cuda(q, k, v, causal=causal,
+                                 window=window).float(),
+            flash_attention_plain(q, k, v, causal=causal,
+                                  window=window).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_misaligned_bf16_views(cuda_device):
+    """The bf16 kernels read 16-byte vectors: a view that starts off a
+    16-byte boundary is refused before any launch, and the context stays
+    usable."""
+    def off_by_one(*shape):
+        n = int(np.prod(shape))
+        t = torch.zeros(n + 1, dtype=torch.bfloat16,
+                        device=cuda_device)[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 != 0
+        return t
+
+    q = torch.zeros(1, 8, 4, 16, dtype=torch.bfloat16, device=cuda_device)
+    k = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda_device)
+    for args in ((off_by_one(1, 8, 4, 16), k, k),
+                 (q, off_by_one(1, 8, 2, 16), k),
+                 (q, k, off_by_one(1, 8, 2, 16))):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention_cuda(*args)
+    pool = off_by_one(3, 4, 2, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_attention_cuda(
+            torch.zeros(1, 4, 16, dtype=torch.bfloat16, device=cuda_device),
+            pool, pool, torch.zeros(1, 2, dtype=torch.int32,
+                                    device=cuda_device),
+            torch.ones(1, dtype=torch.int32, device=cuda_device))
+    assert torch.isfinite(flash_attention_cuda(q, k, k).float()).all()
