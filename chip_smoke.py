@@ -23,10 +23,13 @@ Phases (any failure raises and the script exits non-zero):
      non-causal case; the WKV6 scan within rtol = atol = 2e-4 at full
      width (bf16 and f32) and on its edge cases (a single chunk, a ragged
      S, strong decay, w with exact zeros, a batch with a nonzero initial
-     state, head size 16); then each kernel timed at the main path's
-     shapes two ways: ``ms``, a call as issued from Python (what a serve
-     round pays, the wrapper's host time included), and ``device_ms``, a
-     CUDA graph of calls replayed (the kernels' device time alone); beside
+     state, head size 16, S = 1, 16, 64, 65 and 257 across the kernel's
+     sub-chunk and chunk edges, a nonzero state at head size 32, zeros in
+     w at S = 257), every output finite; then each kernel timed at the
+     main path's shapes two ways: ``ms``, a call as issued from Python
+     (what a serve round pays, the wrapper's host time included), and
+     ``device_ms``, a CUDA graph of calls replayed (the kernels' device
+     time alone); beside
      its plain version's time, its bound and, for flash,
      ``scaled_dot_product_attention`` timed both ways as a yardstick the
      port never calls;
@@ -48,10 +51,10 @@ and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --against OTHER_CHECKOUT
 
-times the paged and flash wrappers of another checkout of the port (for
-example the parent commit, unpacked with ``git archive``) and of this one
-at the main path's bf16 shapes, both ways, in four fresh processes (other,
-this, this, other), and prints one JSON line per turn.
+times the paged, flash and WKV6 scan wrappers of another checkout of the
+port (for example the parent commit, unpacked with ``git archive``) and of
+this one at the main path's bf16 shapes, both ways, in four fresh
+processes (other, this, this, other), and prints one JSON line per turn.
 """
 
 from __future__ import annotations
@@ -389,6 +392,13 @@ def wkv_cost(B, S, H, N, esz):
     return nbytes, flops
 
 
+def wkv_main_inputs(torch, prompt_max):
+    """The bf16 scan inputs the timings use, from a fresh seed (the same in
+    every process): one rwkv6-7b prefill of the longest prompt."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return wkv_inputs(torch, gen, 1, prompt_max, 64, 64, torch.bfloat16)
+
+
 def rwkv_kernel_phase(torch, prompt_max):
     """The WKV6 scan against its plain version, then timed at the full
     width of one rwkv6-7b prefill of the longest prompt."""
@@ -404,6 +414,8 @@ def rwkv_kernel_phase(torch, prompt_max):
         args = wkv_inputs(torch, gen, 1, prompt_max, H, N, dtype)
         out, st = rw.rwkv6_scan_cuda(*args)
         pout, pst = rw.rwkv6_scan_plain(*args)
+        if not (torch.isfinite(out).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"wkv {tag} full width: not finite")
         e = close(f"wkv {tag} full width B=1 S={prompt_max} H={H} N={N} "
                   "out", out, pout, tol)
         close(f"wkv {tag} full width state'", st, pst, tol)
@@ -416,6 +428,14 @@ def rwkv_kernel_phase(torch, prompt_max):
                 "w with zeros": (1, 130, 4, 64, "strong", 0.0, True),
                 "B=2, state": (2, 96, 4, 64, "weak", 0.5, False),
                 "head size 16": (2, 70, 4, 16, "strong", 0.5, False),
+                # the chunked kernel's edges: sub-chunks of 16, chunks of 64
+                "S=1": (1, 1, 4, 64, "weak", 0.5, False),
+                "S=16": (1, 16, 4, 64, "strong", 0.0, False),
+                "S=64": (1, 64, 4, 64, "weak", 0.0, False),
+                "S=65": (2, 65, 4, 64, "strong", 0.5, False),
+                "S=257": (1, 257, 4, 64, "weak", 0.0, False),
+                "head size 32, state": (2, 100, 4, 32, "weak", 0.5, False),
+                "w with zeros, S=257": (1, 257, 4, 64, "strong", 0.0, True),
         }.items():
             r, k, v, w, u, st0 = wkv_inputs(torch, gen, B, S, h, n, dtype,
                                             decay, scale)
@@ -431,8 +451,11 @@ def rwkv_kernel_phase(torch, prompt_max):
             close(f"wkv {tag} {label} state'", st, pst, tol)
     torch.cuda.synchronize()
 
-    dt = torch.bfloat16
-    args = wkv_inputs(torch, gen, 1, prompt_max, H, N, dt)
+    args = wkv_main_inputs(torch, prompt_max)
+    groups = rw.scan_plan(1, H, N, rw.cuda_build.sm_count(0))
+    smem = rw.shared_bytes(torch.bfloat16, N, groups)
+    print(f"  wkv plan at full width: {groups} column groups per head, "
+          f"{groups * H} blocks, {smem} B of shared memory each")
     nbytes, flops = wkv_cost(1, prompt_max, H, N, 2)
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = flops / PEAK_FLOPS["float32"]
@@ -445,7 +468,9 @@ def rwkv_kernel_phase(torch, prompt_max):
             "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None, "device_ms": times["device_ms"],
-            "shape": f"B=1 S={prompt_max} H={H} N={N} r/k/v bf16, w f32"}
+            "shape": f"B=1 S={prompt_max} H={H} N={N} r/k/v bf16, w f32, "
+                     f"{groups} column groups per head",
+            "shared_bytes": smem}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -723,24 +748,28 @@ def workload():
 
 # ------------------------------------------------------ --against OTHER_DIR
 def time_tree(root: Path) -> int:
-    """Build the paged and flash kernels of the checkout at ``root`` and
-    print their wrappers' times at the main path's shapes as one JSON
+    """Build the paged, flash and scan kernels of the checkout at ``root``
+    and print their wrappers' times at the main path's shapes as one JSON
     line.  Runs in a process of its own, in which main() put ``root``'s
     sources first on the path before anything imported the port."""
     import torch
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    if not Path(pa.__file__).resolve().is_relative_to(root.resolve()):
-        raise AssertionError(f"imported {pa.__file__}, not {root}'s")
-    cuda_build.build(("paged_attention", "flash_attention"))
+    from repro_torch.kernels import rwkv6_scan as rw
+    for mod in (pa, rw):
+        if not Path(mod.__file__).resolve().is_relative_to(root.resolve()):
+            raise AssertionError(f"imported {mod.__file__}, not {root}'s")
+    cuda_build.build(KERNEL_SOURCES)
     lens, _, serve_lengths, _ = workload()
     paged, flash = main_path_inputs(torch, serve_lengths, max(lens))
+    scan = wkv_main_inputs(torch, max(lens))
     print(json.dumps({
         "paged_attention": both_times(
             lambda: pa.paged_attention_cuda(*paged)),
         "flash_attention": both_times(
-            lambda: fa.flash_attention_cuda(*flash))}))
+            lambda: fa.flash_attention_cuda(*flash)),
+        "rwkv6_scan": both_times(lambda: rw.rwkv6_scan_cuda(*scan))}))
     return 0
 
 
@@ -764,8 +793,9 @@ def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", type=Path, metavar="OTHER_CHECKOUT",
-                        help="only time this checkout's paged and flash "
-                        "wrappers beside another's")
+                        help="only time this checkout's paged attention, "
+                        "flash attention and WKV6 scan wrappers beside "
+                        "another's")
     parser.add_argument("--time-tree", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.time_tree is not None:

@@ -1,5 +1,6 @@
 // Helpers shared by the port's CUDA kernels: f32 <-> storage-type
-// conversions, warp reductions and 16-byte vectors of a storage type.
+// conversions, warp reductions, 16-byte cp.async copies and 16-byte
+// vectors of a storage type.
 // Included by each csrc/*.cu; cuda_build hashes this header into every
 // library's name, so an edit here rebuilds them all.
 
@@ -33,6 +34,24 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-fills when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // 16 bytes of T: kElems values, loaded with one vector instruction and

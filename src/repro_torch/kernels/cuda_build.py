@@ -16,6 +16,7 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: SMs of an H100 SXM, the default of the kernels' host-side plans
+H100_SXM_SMS = 132
 
 #: kernel launches per kernel name since the last reset
 LAUNCHES: Dict[str, int] = {}
@@ -47,6 +51,13 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (read once per device)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -28,9 +28,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import cuda_build
+from repro_torch.kernels.cuda_build import H100_SXM_SMS, sm_count
 
 NEG_INF = -1e30
-H100_SXM_SMS = 132
 BLOCKS_PER_SM = 2       # the split kernel's target occupancy of the grid
 MAX_G = 8               # query heads one split block scores (kMaxG)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,12 +50,6 @@ def split_plan(B: int, KV: int, MP: int, *, G: int = 1,
     n = max(1, min(MP, want))
     per = max(1, -(-MP // n))
     return max(1, -(-MP // per)), per
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device (read once per device)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,

@@ -9,17 +9,22 @@ walks chunks of 64 tokens on a sequential grid axis and carries the f32
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 What bounds it on the card: at the full-width prefill (B=1, S=256, H=64,
-N=64) the scan moves about 17 MB (bf16 r, k, v; f32 w, out, state) and
-does about 5 N^2 f32 operations per token and head, off the tensor cores;
-the two bounds are both about 5 us, and the recurrence is sequential in S.
-The design keeps the recurrence itself, since a Hopper block has no VMEM
-to carry a state across a sequential grid: value columns are independent,
-so one block of 64 threads takes (b, h, 16 columns), each thread holds a
-quarter of one state column in registers and loops over time, and a tile
-of 16 tokens of r, k, w and v is staged in shared memory with one
-``__syncthreads`` per tile.  (B, H, N/16) blocks give 256 blocks at full
-width, about two per SM.  The kernel takes any S >= 1; it is simple and
-right first, and far from the chunked tensor-core form.
+N=64) the scan moves 16.8 MB (bf16 r, k, v; f32 w, out, state), 0.00501
+ms at 3.35 TB/s, and does 5 N^2 + 4 N f32 operations per token and head,
+0.00507 ms at the 67 TFLOP/s of CUDA cores: the bounds meet.  The first
+port walked the tokens one by one per block and was bound by latency, at
+17x the bound.  The kernel is the chunked form on tensor cores: one block
+per (b, h, group of value columns), :func:`scan_plan` choosing the groups
+from B * H and the SM count; the block walks 64-token chunks in order with
+the group's state columns in shared memory, and inside a chunk
+(sub-chunks of 16 tokens) the read-out of the state, the off-diagonal
+score blocks, scores times v and the carry are ``mma.sync`` TF32 products
+with each f32 operand split into two TF32 halves (three MMAs per product,
+two against bf16 v, which is exact in TF32), as exact as f32 for the 2e-4
+check.  Only the 8x8 triangles on the scores' diagonal run on CUDA cores.
+Decays are running products of w over exactly their own tokens, never
+differences of prefix sums.  The next chunk is staged by ``cp.async``
+while this one computes.
 
 :func:`rwkv6_scan_plain` is the TPU kernel's chunked math step for step in
 f32 (the same computation as the reference's ``wkv_chunked``); a ragged
@@ -42,8 +47,10 @@ from repro_torch.kernels import cuda_build
 #: TPU) turns into 0, so log(w) = -inf and the scan returns NaN where w
 #: holds a zero; the smallest normal float is what that clamp means.
 W_MIN = torch.finfo(torch.float32).tiny
-#: head sizes the kernel is built for (its state lives in registers)
+#: head sizes the kernel is built for
 HEAD_DIMS = (16, 32, 64)
+#: value columns a block takes at the least (two 8-column mma tiles)
+MIN_COLS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -117,9 +124,25 @@ def rwkv6_scan_plain(r, k, v, w, u, state, chunk: int = 64
     return out, state
 
 
-def _check(cond: bool, msg: str) -> None:
+def scan_plan(B: int, H: int, N: int,
+              sm_count: int = cuda_build.H100_SXM_SMS) -> int:
+    """Value-column groups per head, one block each: the most (a power of
+    two, at most ``N // MIN_COLS``) that keep the ``B * H * groups``
+    blocks within one wave of one block per SM.  Each group repeats the
+    chunk's scores, which do not depend on the columns, so more groups
+    than SMs only add work.  Reads shapes and the card, never the data."""
+    groups = 1
+    while groups * 2 * MIN_COLS <= N and B * H * groups * 2 <= sm_count:
+        groups *= 2
+    return groups
+
+
+def _check(cond: bool, msg) -> None:
+    """Raise unless ``cond``; ``msg`` is a string or, where it needs
+    formatting, a function that makes it (called only on failure: the
+    wrapper is on the prefill path's host time)."""
     if not cond:
-        raise ValueError(f"rwkv6_scan: {msg}")
+        raise ValueError(f"rwkv6_scan: {msg() if callable(msg) else msg}")
 
 
 def rwkv6_scan_cuda(r, k, v, w, u, state
@@ -127,9 +150,12 @@ def rwkv6_scan_cuda(r, k, v, w, u, state
     """Launch the CUDA kernel; same contract as the plain version (the
     kernel needs no chunk).  Raises on anything the kernel does not take."""
     _check(r.is_cuda, "r must be a CUDA tensor")
-    _check(all(t.device == r.device for t in (k, v, w, u, state)),
+    dev = r.device
+    _check(k.device == dev and v.device == dev and w.device == dev
+           and u.device == dev and state.device == dev,
            "all inputs must be on one device")
-    _check(r.dtype in _DTYPES, f"dtype {r.dtype} (float32 or bfloat16)")
+    _check(r.dtype in _DTYPES,
+           lambda: f"dtype {r.dtype} (float32 or bfloat16)")
     _check(k.dtype == r.dtype and v.dtype == r.dtype,
            "r, k and v must share a dtype")
     _check(w.dtype == u.dtype == state.dtype == torch.float32,
@@ -138,23 +164,27 @@ def rwkv6_scan_cuda(r, k, v, w, u, state
     B, S, H, N = r.shape
     _check(k.shape == r.shape and v.shape == r.shape and w.shape == r.shape,
            "r, k, v and w must share their shape")
-    _check(tuple(u.shape) == (H, N), f"u shape {tuple(u.shape)} != {(H, N)}")
-    _check(tuple(state.shape) == (B, H, N, N),
-           f"state shape {tuple(state.shape)} != {(B, H, N, N)}")
-    _check(N in HEAD_DIMS, f"head size {N} (one of {HEAD_DIMS})")
+    _check(u.shape == (H, N),
+           lambda: f"u shape {tuple(u.shape)} != {(H, N)}")
+    _check(state.shape == (B, H, N, N),
+           lambda: f"state shape {tuple(state.shape)} != {(B, H, N, N)}")
+    _check(N in HEAD_DIMS, lambda: f"head size {N} (one of {HEAD_DIMS})")
     _check(S >= 1, "S must be >= 1")
-    _check(all(t.is_contiguous() for t in (r, k, v, w, u, state)),
-           "all inputs must be contiguous")
-    out = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
+    _check(r.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+           and w.is_contiguous() and u.is_contiguous()
+           and state.is_contiguous(), "all inputs must be contiguous")
+    _check((r.data_ptr() | k.data_ptr() | v.data_ptr() | w.data_ptr())
+           % 16 == 0, "r, k, v and w must start on 16-byte boundaries")
+    out = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     state_out = torch.empty_like(state)
     if B * H == 0:
         return out, state_out
-    lib = _lib()
-    err = lib.rwkv6_scan_launch(
+    err = _lib().rwkv6_scan_launch(
         _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         w.data_ptr(), u.data_ptr(), state.data_ptr(), out.data_ptr(),
         state_out.data_ptr(), B, S, H, N,
-        torch.cuda.current_stream(r.device).cuda_stream)
+        scan_plan(B, H, N, cuda_build.sm_count(dev)),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: cudaError "
                            f"{err}")
@@ -162,11 +192,19 @@ def rwkv6_scan_cuda(r, k, v, w, u, state
     return out, state_out
 
 
+def shared_bytes(dtype: torch.dtype, N: int, groups: int) -> int:
+    """Dynamic shared memory of one block of the kernel built for r/k/v of
+    ``dtype``, head size N and ``groups`` column groups (builds it)."""
+    return _lib().rwkv6_scan_smem_bytes(_DTYPES[dtype], N, groups)
+
+
 def _lib():
     lib = cuda_build.load("rwkv6_scan")
     fn = lib.rwkv6_scan_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.rwkv6_scan_smem_bytes.argtypes = [i, i, i]
+        lib.rwkv6_scan_smem_bytes.restype = i
     return lib

@@ -34,7 +34,8 @@ from repro_torch.core import system_for
 from repro_torch.core.metrics import GLOBAL_METRICS
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import cuda_build, ops, ref
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+from repro_torch.kernels.rwkv6_scan import (W_MIN, rwkv6_scan_cuda,
+                                            rwkv6_scan_plain, scan_plan)
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
 from repro_torch.models.rwkv6 import wkv_chunked
@@ -181,19 +182,227 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _edge_inputs(seed, B, S, H, N, kind, state_scale=0.1):
+    """``_scan_inputs`` of one kind: weak or strong decay, or strong decay
+    with exact zeros in w (every 7th token, and 4 channels of head 1)."""
+    r, k, v, w, u, st = _scan_inputs(seed, B, S, H, N,
+                                     "weak" if kind == "weak" else "strong",
+                                     state_scale)
+    if kind == "zeros":
+        w[:, ::7] = 0.0
+        w[:, :, min(1, H - 1), :4] = 0.0
+    return r, k, v, w, u, st
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S", [17, 100, 256])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, S):
+@pytest.mark.parametrize("S", [1, 16, 17, 64, 65, 100, 256, 257])
+@pytest.mark.parametrize("kind", ["weak", "strong", "zeros"])
+def test_cuda_kernel_matches_plain(cuda_device, dtype, S, kind):
     """On the card: the kernel against its plain version on the same
-    (bf16-rounded) inputs; only the order of the sums differs."""
+    (bf16-rounded) inputs, at S on and across the kernel's sub-chunk (16)
+    and chunk (64) edges; only the order of the sums and the split-TF32
+    products differ."""
     r, k, v, w, u, st = (t.to(cuda_device) for t in _t(
-        _scan_inputs(7, 2, S, 4, 64, "strong")))
+        _edge_inputs(7, 2, S, 4, 64, kind)))
     r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
     out, st_out = rwkv6_scan_cuda(r, k, v, w, u, st)
     pout, pst = rwkv6_scan_plain(r, k, v, w, u, st)
+    assert torch.isfinite(out).all() and torch.isfinite(st_out).all()
     torch.testing.assert_close(out, pout, rtol=SCAN_TOL, atol=SCAN_TOL)
     torch.testing.assert_close(st_out, pst, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,H,N,sms,groups", [
+    (1, 64, 64, 132, 2),    # the full-width prefill: 128 blocks
+    (1, 64, 64, 114, 1),    # a card with fewer SMs
+    (1, 4, 64, 132, 4),     # few heads: every group of 16 columns
+    (2, 4, 32, 132, 2),     # N = 32: at most two groups of 16
+    (2, 4, 16, 132, 1),     # N = 16: one group
+    (8, 64, 64, 132, 1),    # a batch that fills the card alone
+])
+def test_scan_plan_follows_the_card(B, H, N, sms, groups):
+    got = scan_plan(B, H, N, sm_count=sms)
+    assert got == groups
+    assert N // got >= 16 and (N // got) % 16 == 0
+    assert got == 1 or B * H * got <= sms
+
+
+# ------------------------------------------- the kernel's decomposition
+def _tf32(x):
+    """Round f32 to TF32 to nearest, ties away from zero (``cvt.rna``, as
+    the kernel does it): add half a unit of TF32's last place (bit 12) to
+    the bit pattern, clear the low 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor cores read of an f32 register: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_split(a, b, exact_b=False):
+    """a @ b as the kernel's tensor cores take it: each operand split into
+    hi, rounded to TF32, and the remainder lo, which the tensor cores
+    truncate to TF32; lo.hi + hi.lo + hi.hi (no hi.lo for an exact b)."""
+    a_hi = _tf32(a)
+    a_lo = _tf32_trunc(a - a_hi)
+    b_hi = _tf32(b)
+    out = a_lo @ b_hi
+    if not exact_b:
+        out = out + a_hi @ _tf32_trunc(b - b_hi)
+    return out + a_hi @ b_hi
+
+
+def _mm_one_pass(a, b, exact_b=False):
+    """a @ b with each operand rounded to TF32 once."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _kernel_mirror(r, k, v, w, u, state, mm=_mm_split):
+    """The CUDA kernel's arithmetic in torch (csrc/rwkv6_scan.cu): chunks of
+    64 tokens in sub-chunks of 16, decays as running products of w, the
+    8x8 triangles on the score's diagonal (and the bonus on it) in f32, and
+    every other product through ``mm`` (the tensor cores).  A ragged last
+    chunk is zero-filled with w = 1, as the kernel's copies leave it."""
+    B, S, H, N = r.shape
+    T, Q, NS = 64, 16, 4
+    f32 = torch.float32
+    exact_v = v.dtype == torch.bfloat16
+    r, k, v = (a.to(f32).permute(0, 2, 1, 3) for a in (r, k, v))
+    w = torch.clamp(w.to(f32), min=W_MIN).permute(0, 2, 1, 3)
+    u = u.to(f32)[None]
+    st = state.to(f32)
+    outs = []
+    for t0 in range(0, S, T):
+        nt = min(T, S - t0)
+        rc, kc, vc = (torch.nn.functional.pad(a[:, :, t0:t0 + nt],
+                                              (0, 0, 0, T - nt))
+                      for a in (r, k, v))
+        wc = torch.nn.functional.pad(w[:, :, t0:t0 + nt], (0, 0, 0, T - nt),
+                                     value=1.0)
+        # 1a. prefix and suffix products per sub-chunk, and their totals
+        rp, kq = torch.empty_like(rc), torch.empty_like(kc)
+        tot = []
+        for i in range(NS):
+            p = torch.ones_like(rc[:, :, 0])
+            for t in range(i * Q, (i + 1) * Q):
+                rp[:, :, t] = rc[:, :, t] * p
+                p = p * wc[:, :, t]
+            tot.append(p)
+            q = torch.ones_like(p)
+            for t in reversed(range(i * Q, (i + 1) * Q)):
+                kq[:, :, t] = kc[:, :, t] * q
+                q = q * wc[:, :, t]
+        # 1b. the 8x8 triangles of each sub-chunk's diagonal block on CUDA
+        # cores: a running product from s to t within a half sub-chunk
+        score = torch.zeros((B, H, T, T), dtype=f32)
+        for s in range(T):
+            score[:, :, s, s] = (rc[:, :, s] * (u * kc[:, :, s])).sum(-1)
+            kd = kc[:, :, s]
+            for t in range(s + 1, (s // 8 + 1) * 8):
+                score[:, :, t, s] = (rc[:, :, t] * kd).sum(-1)
+                kd = kd * wc[:, :, t]
+        # 1c. the 8x8 block below each triangle pair, t in the second half
+        # of a sub-chunk and s in the first, with the decays restarted at
+        # the half: (r * pe8) (k * q8)^T on the tensor cores
+        for i in range(NS):
+            mid = i * Q + Q // 2
+            rp8, kq8 = torch.empty_like(rc[:, :, :8]), torch.empty_like(
+                kc[:, :, :8])
+            p = torch.ones_like(rc[:, :, 0])
+            for t in range(8):
+                rp8[:, :, t] = rc[:, :, mid + t] * p
+                p = p * wc[:, :, mid + t]
+            q = torch.ones_like(p)
+            for t in reversed(range(8)):
+                kq8[:, :, t] = kc[:, :, mid - 8 + t] * q
+                q = q * wc[:, :, mid - 8 + t]
+            score[:, :, mid:mid + 8, mid - 8:mid] = mm(
+                rp8, kq8.transpose(-1, -2))
+        # 2a. off-diagonal blocks: RP_i (KQ_j prod_{j<m<i} Tot_m)^T
+        for i in range(1, NS):
+            for j in range(i):
+                f = torch.ones_like(tot[0])
+                for m in range(j + 1, i):
+                    f = f * tot[m]
+                kb = kq[:, :, j * Q:(j + 1) * Q] * f[:, :, None]
+                score[:, :, i * Q:(i + 1) * Q, j * Q:(j + 1) * Q] = mm(
+                    rp[:, :, i * Q:(i + 1) * Q], kb.transpose(-1, -2))
+        # 2b. the carry: diag(prod Tot) S + (KQ prod_{m>j} Tot_m)^T v
+        e = [torch.ones_like(tot[0])]
+        for j in range(NS - 2, -1, -1):
+            e.insert(0, e[0] * tot[j + 1])
+        kcarry = torch.cat([kq[:, :, j * Q:(j + 1) * Q] * e[j][:, :, None]
+                            for j in range(NS)], dim=2)
+        carry = st * (e[0] * tot[0])[..., None] + mm(
+            kcarry.transpose(-1, -2), vc, exact_v)
+        # 3. out = (RP_i prod_{m<i} Tot_m) S + scores v
+        out = []
+        for i in range(NS):
+            f = torch.ones_like(tot[0])
+            for m in range(i):
+                f = f * tot[m]
+            rows = slice(i * Q, (i + 1) * Q)
+            out.append(mm(rp[:, :, rows] * f[:, :, None], st)
+                       + mm(score[:, :, rows, :(i + 1) * Q],
+                            vc[:, :, :(i + 1) * Q], exact_v))
+        outs.append(torch.cat(out, dim=2)[:, :, :nt])
+        st = carry
+    return torch.cat(outs, dim=2).permute(0, 2, 1, 3), st
+
+
+#: chip_smoke's scan inputs at a narrow width (H = 2):
+#: (B, S, N, kind, state scale)
+DECOMPOSITION_CASES = {
+    "full width": (1, 256, 64, "weak", 0.0),
+    "single chunk": (1, 17, 64, "weak", 0.0),
+    "ragged S": (1, 100, 64, "weak", 0.0),
+    "strong decay": (1, 256, 64, "strong", 0.0),
+    "w with zeros": (1, 130, 64, "zeros", 0.0),
+    "B=2, state": (2, 96, 64, "weak", 0.5),
+    "head size 16": (2, 70, 16, "strong", 0.5),
+}
+
+
+def _decomposition_inputs(case, dtype):
+    B, S, N, kind, scale = DECOMPOSITION_CASES[case]
+    r, k, v, w, u, st = _t(_edge_inputs(12, B, S, 2, N, kind, scale))
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, u, st)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECOMPOSITION_CASES))
+def test_kernel_decomposition_matches_plain(case, dtype):
+    """The arithmetic the CUDA kernel runs (sub-chunk factoring, running
+    products, split-TF32 products emulated bit for bit) against the plain
+    version, within the kernel's own 2e-4, on chip_smoke's scan inputs."""
+    inputs = _decomposition_inputs(case, dtype)
+    out, st = _kernel_mirror(*inputs)
+    pout, pst = rwkv6_scan_plain(*inputs)
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(out, pout, rtol=SCAN_TOL, atol=SCAN_TOL)
+    torch.testing.assert_close(st, pst, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+def test_kernel_decomposition_matches_pallas_kernel():
+    """The same mirror against the Pallas kernel in interpret mode."""
+    inputs = _decomposition_inputs("strong decay", torch.float32)
+    out, st = _kernel_mirror(*inputs)
+    jout, jst = jrwkv6_scan(*_j([a.numpy() for a in inputs]),
+                            interpret=True)
+    _close(out, jout, SCAN_TOL)
+    _close(st, jst, SCAN_TOL)
+
+
+def test_one_tf32_pass_would_miss_the_tolerance():
+    """Why the kernel splits its operands: the same decomposition with each
+    operand rounded to TF32 once is far outside 2e-4."""
+    inputs = _decomposition_inputs("full width", torch.bfloat16)
+    out, _ = _kernel_mirror(*inputs, mm=_mm_one_pass)
+    pout, _ = rwkv6_scan_plain(*inputs)
+    assert float((out - pout).abs().max()) > 10 * SCAN_TOL
 
 
 # ------------------------------------------------------------------ model
