@@ -32,7 +32,9 @@ Phases (any failure raises and the script exits non-zero):
      time alone); beside
      its plain version's time, its bound and, for flash,
      ``scaled_dot_product_attention`` timed both ways as a yardstick the
-     port never calls;
+     port never calls.  Paged and flash are also checked at dbrx-132b's
+     shapes (48 heads over 8 KV heads) and flash at hymba-1.5b's (25 over
+     5, head_dim 64, window 1024, S = 256 and 1100);
   3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
@@ -42,9 +44,21 @@ Phases (any failure raises and the script exits non-zero):
      KV, so no LMB traffic, by the reference's design); one scan launch
      per prompt and layer between the reset and the read of the counts;
      a second run times prefill and decode apart;
-  5. reference: each reduced config in f32 served on the card and on the
+  4b. serve dbrx-132b (MoE, 16 experts, top-4) at full width, 8 of its 40
+     layers, on the LMB-paged path: one paged launch per layer and round,
+     one flash launch per layer and prompt; the breakdown times the MoE
+     layer apart;
+  4c. serve hymba-1.5b (attention and SSM heads in parallel) at full
+     width and depth on the dense slot path, its KV in LMB pages: one
+     flash launch and one ``ssd_scan`` call per layer and prompt; the
+     breakdown times the SSM branch apart;
+  5. reference: each reduced config in f32 (qwen2-1.5b, rwkv6-7b,
+     dbrx-132b, mixtral-8x22b, hymba-1.5b) served on the card and on the
      CPU (plain versions, which the tests hold to the JAX reference) must
      give the same logits, token streams and link bytes.
+
+Each phase's prompts are drawn from its model's vocabulary, and each
+serve phase starts from a card that the previous one's params have left.
 
 The last lines are the ``kernels`` JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
@@ -59,6 +73,7 @@ processes (other, this, this, other), and prints one JSON line per turn.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -73,12 +88,19 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan")
-#: the kernels each served model's main path launches
-QWEN_KERNELS = ("paged_attention", "flash_attention")
+#: the kernels each served path launches: the LMB-paged path (qwen2-1.5b,
+#: dbrx-132b; hymba-1.5b prefills through flash too) and rwkv6-7b's
+PAGED_KERNELS = ("paged_attention", "flash_attention")
 RWKV_KERNELS = ("rwkv6_scan",)
 #: qwen2-1.5b's attention (H, KV, hd) and its serve phase's page tokens T
 #: and page-table width MP (max_seq_len 512 / 32)
 ATTN_SHAPE = (12, 2, 128, 32, 16)
+#: dbrx-132b's attention (H, KV, hd), and hymba-1.5b's with its window
+DBRX_ATTN = (48, 8, 128)
+HYMBA_ATTN = (25, 5, 64, 1024)
+#: the layers of dbrx-132b's 40 that one 80 GB card holds in bf16 with
+#: room to serve (6.52 GB a layer, 1.23 GB of embedding)
+DBRX_LAYERS = 8
 
 
 def card_line() -> str:
@@ -238,6 +260,15 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                   pa.paged_attention_plain(*args), tol[dtype])
         if dtype == torch.bfloat16:
             errs["paged_attention"] = e
+        # paged at dbrx-132b's decode batch (48 heads over 8 KV heads)
+        h, kv, d = DBRX_ATTN
+        B = len(serve_lengths)
+        args = paged_inputs(torch, gen, dtype, B, h, kv, d, T, MP,
+                            serve_lengths, L=DBRX_LAYERS, layer=5)
+        dplan = pa.split_plan(B, kv, MP, G=h // kv, sm_count=sms)
+        check(f"paged {tag} dbrx-132b B={B} H={h} KV={kv} plan={dplan}",
+              pa.paged_attention_cuda(*args),
+              pa.paged_attention_plain(*args), tol[dtype])
         # paged at full width, the split plan's edges: rows that end inside
         # a split of two pages and trailing splits with no live token (B 16
         # gives 8 splits of 2 pages), every page of MP live, MP = 13 not a
@@ -267,12 +298,18 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             for b, n in enumerate(lengths):
                 if n == 0 and bool(out[b].abs().max() != 0):
                     raise AssertionError("length-0 row is not zero")
-        # flash: the longest prompt at full width, then edge cases: S not a
-        # multiple of the 32-row q tile or the 64-key tile, windows that
-        # cross tile edges, B = 2, head dims 16/64/128/256 and the padded
-        # ones between (32 -> 64, 96 -> 128, 144 -> 256), not causal
+        # flash: the longest prompt at full width (qwen2-1.5b, dbrx-132b,
+        # hymba-1.5b with its window of 1024, and past it), then edge
+        # cases: S not a multiple of the 32-row q tile or the 64-key tile,
+        # windows that cross tile edges, B = 2, head dims 16/64/128/256 and
+        # the padded ones between (32 -> 64, 96 -> 128, 144 -> 256), not
+        # causal
+        hh, hkv, hd_h, hwin = HYMBA_ATTN
         for (B, S, h, kv, d, window, causal) in (
                 (1, prompt_max, H, KV, hd, None, True),
+                (1, prompt_max, *DBRX_ATTN, None, True),
+                (1, prompt_max, hh, hkv, hd_h, hwin, True),
+                (1, 1100, hh, hkv, hd_h, hwin, True),
                 (1, 100, H, KV, hd, None, True),
                 (2, 70, H, KV, hd, 40, True),
                 (1, prompt_max, H, KV, hd, 100, True),
@@ -296,7 +333,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                       fa.flash_attention_plain(q, k, v, causal=causal,
                                                window=window), tol[dtype])
             if dtype == torch.bfloat16 and S == prompt_max and \
-                    window is None:
+                    window is None and h == H:
                 errs["flash_attention"] = e
     torch.cuda.synchronize()
 
@@ -503,108 +540,59 @@ def serve(torch, cfg, flags, params, specs, ecfg, device, instrument=None):
     return eng, rids, rounds, wall, system
 
 
-def serve_phase(torch, prompts):
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels import cuda_build
-    from repro_torch.models import build_model
-    from repro_torch.models.flags import Flags
-    from repro_torch.serve import EngineConfig
-
-    cfg = get_config("qwen2-1.5b")
-    flags = Flags(remat=False, use_kernels=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t = time.monotonic()
-    params = build_model(cfg, flags, device="cuda").init(gen)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    print(f"phase 3: serve qwen2-1.5b full width, {n_params} params bf16, "
-          f"init {time.monotonic() - t:.2f}s")
-    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
-                        onboard_pages=16)
-    # warm-up (cuBLAS handles, allocator): one short request
-    eng, _, _, _, system = serve(torch, cfg, flags, params,
-                                 [(prompts[0][0][:16], 2)], ecfg, "cuda")
-    system.close()
-    del eng
-    cuda_build.reset_launch_counts()
-    eng, rids, rounds, wall, system = serve(torch, cfg, flags, params,
-                                            prompts, ecfg, "cuda")
-    torch.cuda.synchronize()
-    launches = cuda_build.launch_counts()
-    st = eng.stats()
-    reqs = [eng.requests[r] for r in rids]
-    if not all(r.state == "done" for r in reqs):
-        raise AssertionError(f"not all done: {[r.state for r in reqs]}")
-    for r, (_, n) in zip(reqs, prompts):
-        if len(r.out_tokens) != n or not all(
-                0 <= t < cfg.padded_vocab for t in r.out_tokens):
-            raise AssertionError(f"request {r.req_id}: bad tokens")
-    op_bytes = eng.kv.buf.host.fm.op_bytes()
-    c = eng.kv.buf.metrics.tier(eng.kv.buf.name, "onboard")
-    gen_tokens = sum(len(r.out_tokens) for r in reqs)
-    page_bytes = eng.kv.buf.page_bytes
-    result = {
-        "requests": len(reqs), "generated_tokens": gen_tokens,
-        "wall_s": wall, "tokens_per_s": gen_tokens / wall,
-        "mean_ttft_s": st["mean_ttft_s"],
-        "mean_round_s": sum(rounds) / len(rounds), "rounds": len(rounds),
-        "paged_rounds": eng.paged_rounds, "launches": launches,
-        "lmb_link_bytes": op_bytes, "onboard_hits": c.hits,
-        "onboard_misses": c.misses, "kv_page_bytes": page_bytes,
-        "lmb_resident_pages_at_end": eng.kv.lmb_resident_pages(),
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-    }
-    system.close()
-    print("  serve: " + json.dumps(result))
-    if eng.paged_rounds <= 0:
-        raise AssertionError("no paged decode round ran")
-    for name in QWEN_KERNELS:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    if sum(op_bytes.values()) <= 0 or c.misses <= 0:
-        raise AssertionError("the KV never crossed the LMB link")
-    result["breakdown"] = breakdown_phase(torch, cfg, flags, params, prompts,
-                                          ecfg)
-    return result
-
-
-def rwkv_serve_phase(torch, lens, news):
-    """Full-width rwkv6-7b served from random bf16 weights: every prefill
-    through the scan kernel, decode on the dense slot path."""
-    import numpy as np
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels import cuda_build
-    from repro_torch.models import build_model
-    from repro_torch.models.flags import Flags
-    from repro_torch.serve import EngineConfig
-
+def free_card(torch) -> float:
+    """Drop what earlier phases left (engines hold their params in
+    reference cycles) and return the GiB still allocated."""
     gc.collect()
-    torch.cuda.empty_cache()            # the qwen phase's params are gone
-    cfg = get_config("rwkv6-7b")
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def prompts_for(cfg, lens, news, seed):
+    """The workload's prompts, drawn from the model's own vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for n, m in zip(lens, news)]
+
+
+def serve_phase(torch, label, cfg, prompts, ecfg, apart=()):
+    """Serve ``cfg`` at full width from random bf16 weights drawn from
+    seed 0, with the kernels on: a warm-up request (cuBLAS handles, the
+    allocator), then the measured run, with the kernels' launch counts and
+    the dispatchers' call counts reset just before it and read just after,
+    then the breakdown run.  The params are dropped on return."""
+    from repro_torch.core.metrics import GLOBAL_METRICS
+    from repro_torch.kernels import cuda_build, ops
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+
+    left = free_card(torch)
+    if left > 1.0:
+        raise AssertionError(f"{left:.2f} GiB of earlier phases still on "
+                             "the card")
+    torch.cuda.reset_peak_memory_stats()
     flags = Flags(remat=False, use_kernels=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t = time.monotonic()
     params = build_model(cfg, flags, device="cuda").init(gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"phase 4: serve rwkv6-7b full width, {n_params} params bf16, "
-          f"init {time.monotonic() - t:.2f}s")
-    rng = np.random.default_rng(1)
-    prompts = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
-               for n, m in zip(lens, news)]
-    # one KV page would be L*2*32*KV*hd*2 B = 16 MiB; this model stores none
-    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
-                        onboard_pages=4)
+    print(f"{label}: serve {cfg.name} full width, {cfg.num_layers} layers, "
+          f"{n_params} params bf16, init {time.monotonic() - t:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     eng, _, _, _, system = serve(torch, cfg, flags, params,
                                  [(prompts[0][0][:16], 2)], ecfg, "cuda")
     system.close()
     del eng
-    torch.cuda.reset_peak_memory_stats()
     cuda_build.reset_launch_counts()
+    calls = ops.dispatch_counts()
+    GLOBAL_METRICS.reset()             # the onboard tier's hits and misses
     eng, rids, rounds, wall, system = serve(torch, cfg, flags, params,
                                             prompts, ecfg, "cuda")
     torch.cuda.synchronize()
     launches = cuda_build.launch_counts()
+    dispatches = {k: v - calls[k] for k, v in ops.dispatch_counts().items()}
     st = eng.stats()
     reqs = [eng.requests[r] for r in rids]
     if not all(r.state == "done" for r in reqs):
@@ -613,7 +601,7 @@ def rwkv_serve_phase(torch, lens, news):
         if len(r.out_tokens) != n or not all(
                 0 <= t < cfg.padded_vocab for t in r.out_tokens):
             raise AssertionError(f"request {r.req_id}: bad tokens")
-    op_bytes = eng.kv.buf.host.fm.op_bytes()
+    c = eng.kv.buf.metrics.tier(eng.kv.buf.name, "onboard")
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
     result = {
         "requests": len(reqs), "generated_tokens": gen_tokens,
@@ -621,61 +609,161 @@ def rwkv_serve_phase(torch, lens, news):
         "mean_ttft_s": st["mean_ttft_s"],
         "mean_round_s": sum(rounds) / len(rounds), "rounds": len(rounds),
         "decode_path": st["decode_path"], "paged_rounds": eng.paged_rounds,
-        "launches": launches, "lmb_link_bytes": op_bytes,
+        "launches": launches, "dispatches": dispatches,
+        "lmb_link_bytes": eng.kv.buf.host.fm.op_bytes(),
+        "onboard_hits": c.hits, "onboard_misses": c.misses,
+        "kv_page_bytes": eng.kv.buf.page_bytes,
+        "lmb_resident_pages_at_end": eng.kv.lmb_resident_pages(),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     system.close()
+    del eng
     print("  serve: " + json.dumps(result))
-    if st["decode_path"] != "dense" or eng.paged_rounds != 0:
-        raise AssertionError("rwkv6 left the dense slot path")
-    want = cfg.num_layers * len(prompts)
-    if launches.get("rwkv6_scan", 0) != want:
-        raise AssertionError(f"rwkv6_scan launched "
-                             f"{launches.get('rwkv6_scan', 0)} times, not "
-                             f"{want} (one per prompt and layer)")
-    if op_bytes:
-        raise AssertionError(f"rwkv6 moved LMB bytes: {op_bytes}")
     result["breakdown"] = breakdown_phase(torch, cfg, flags, params, prompts,
-                                          ecfg)
+                                          ecfg, apart)
     return result
 
 
-def breakdown_phase(torch, cfg, flags, params, prompts, ecfg):
+def check_paged(res, cfg) -> None:
+    """The LMB main path: paged decode every round, flash every prefill,
+    the KV across the link."""
+    launches, op_bytes = res["launches"], res["lmb_link_bytes"]
+    if res["decode_path"] != "paged" or res["paged_rounds"] <= 0:
+        raise AssertionError(f"{cfg.name}: no paged decode round ran")
+    for name in PAGED_KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    if op_bytes.get("demand", 0) <= 0 or res["onboard_misses"] <= 0:
+        raise AssertionError(f"{cfg.name}: the KV never crossed the LMB "
+                             "link")
+
+
+def check_counts(res, cfg, want) -> None:
+    """Launch (kernels) and call (dispatchers) counts of the measured run
+    against ``want``: {name: count}."""
+    got = {**res["dispatches"], **res["launches"]}
+    for name, n in want.items():
+        if got.get(name, 0) != n:
+            raise AssertionError(f"{cfg.name}: {name} ran "
+                                 f"{got.get(name, 0)} times, not {n}")
+    print(f"  counts as expected: {want}")
+
+
+def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     """The serve run again, each stage of the engine timed on the host
     with a device sync after it (so stages do not overlap): where a round's
     time goes.  Not the measured run: the syncs cost a little.  The model
     step is the paged step or, on the dense slot path, the per-request
-    decode step; a path's stages that never run stay at 0."""
+    decode step; a path's stages that never run stay at 0.  ``apart``
+    names model functions, ``(key, module, attribute)``, timed apart inside
+    the stage that calls them (the MoE layer, the SSM branch): their
+    seconds are part of that stage's."""
     acc = {"prefill": 0.0, "decode_view": 0.0, "model_step": 0.0,
            "commit_decode": 0.0}
+    inner = {f"{key}_in_{stage}": 0.0 for key, _, _ in apart
+             for stage in ("prefill", "model_step")}
+    stage = [None]
 
-    def timed(name, fn):
+    def timed(name, fn, into):
         def run(*args, **kw):
             torch.cuda.synchronize()
-            t = time.monotonic()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            acc[name] += time.monotonic() - t
+            outer, t = stage[0], time.monotonic()
+            if into is acc:
+                stage[0] = name
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                stage[0] = outer
+            key = name if into is acc else f"{name}_in_{outer}"
+            into[key] = into.get(key, 0.0) + time.monotonic() - t
             return out
         return run
 
     def instrument(eng):
-        eng._prefill_fn = timed("prefill", eng._prefill_fn)
+        eng._prefill_fn = timed("prefill", eng._prefill_fn, acc)
         if eng._paged_fn is not None:
-            eng._paged_fn = timed("model_step", eng._paged_fn)
-        eng._decode_fn = timed("model_step", eng._decode_fn)
-        eng.kv.decode_view = timed("decode_view", eng.kv.decode_view)
-        eng.kv.commit_decode = timed("commit_decode", eng.kv.commit_decode)
+            eng._paged_fn = timed("model_step", eng._paged_fn, acc)
+        eng._decode_fn = timed("model_step", eng._decode_fn, acc)
+        eng.kv.decode_view = timed("decode_view", eng.kv.decode_view, acc)
+        eng.kv.commit_decode = timed("commit_decode", eng.kv.commit_decode,
+                                     acc)
 
-    eng, _, rounds, wall, system = serve(torch, cfg, flags, params, prompts,
-                                         ecfg, "cuda", instrument)
-    system.close()
+    saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in apart]
+    for (key, mod, attr), (_, _, fn) in zip(apart, saved):
+        setattr(mod, attr, timed(key, fn, inner))
+    try:
+        eng, _, rounds, wall, system = serve(torch, cfg, flags, params,
+                                             prompts, ecfg, "cuda",
+                                             instrument)
+        system.close()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
     out = dict(acc)
     out["other"] = wall - sum(acc.values())
     out["wall_s"] = wall
     out["rounds"] = len(rounds)
+    if inner:
+        out["apart"] = inner
     print("  breakdown (s, summed over the run): " + json.dumps(out))
     return out
+
+
+def serve_phases(torch, lens, news, prompts) -> dict:
+    """Phases 3 to 4c: each model served, checked and dropped in turn;
+    returns each one's results by name."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.serve import EngineConfig
+
+    qwen = get_config("qwen2-1.5b")
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    served = {}
+    # qwen2-1.5b: the LMB main path.  A KV page is 28*2*32*2*128*2 B =
+    # 917,504 B; 16 onboard pages hold about a third of the batch's KV
+    served["qwen2-1.5b"] = res = serve_phase(torch, "phase 3", qwen, prompts,
+                                             ecfg)
+    check_paged(res, qwen)
+    # rwkv6-7b: one KV page would be 16 MiB; this model stores none
+    cfg = get_config("rwkv6-7b")
+    served["rwkv6-7b"] = res = serve_phase(
+        torch, "phase 4", cfg, prompts_for(cfg, lens, news, 1),
+        dataclasses.replace(ecfg, onboard_pages=4))
+    if res["decode_path"] != "dense" or res["paged_rounds"] != 0:
+        raise AssertionError("rwkv6 left the dense slot path")
+    check_counts(res, cfg, {"rwkv6_scan": cfg.num_layers * len(prompts)})
+    if res["lmb_link_bytes"]:
+        raise AssertionError(f"rwkv6 moved LMB bytes: "
+                             f"{res['lmb_link_bytes']}")
+    # dbrx-132b at full width, 8 of its 40 layers (a layer is 6.52 GB in
+    # bf16, so 40 would be 262 GB); a KV page is 8*2*32*8*128*2 B =
+    # 1,048,576 B, and the batch's ~40 pages spill past 16 onboard
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              num_layers=DBRX_LAYERS)
+    served["dbrx-132b"] = res = serve_phase(
+        torch, "phase 4b", cfg, prompts_for(cfg, lens, news, 2), ecfg,
+        apart=(("moe", moe_mod, "moe_apply"),))
+    check_paged(res, cfg)
+    check_counts(res, cfg, {
+        "paged_attention": cfg.num_layers * res["paged_rounds"],
+        "flash_attention": cfg.num_layers * len(prompts)})
+    # hymba-1.5b at full width and depth: the dense slot path (its SWA ring
+    # and SSM state), its KV in LMB pages of 32*2*32*5*64*2 B = 1,310,720 B
+    cfg = get_config("hymba-1.5b")
+    served["hymba-1.5b"] = res = serve_phase(
+        torch, "phase 4c", cfg, prompts_for(cfg, lens, news, 3), ecfg,
+        apart=(("ssm", ssm_mod, "ssm_apply"),))
+    if res["decode_path"] != "dense":
+        raise AssertionError("hymba left the dense slot path")
+    check_counts(res, cfg, {"ssd_scan": cfg.num_layers * len(prompts),
+                            "flash_attention": cfg.num_layers * len(prompts)})
+    if sum(res["lmb_link_bytes"].values()) <= 0:
+        raise AssertionError("hymba's KV never crossed the LMB link")
+    free_card(torch)
+    return served
 
 
 def _leaves(tree):
@@ -691,8 +779,9 @@ def reference_phase(torch, arch, lengths, max_seq_len):
     """A reduced config in f32: the card (kernels) against the CPU (plain
     versions) on the same params and prompts."""
     import numpy as np
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import MOE, get_config
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.flags import Flags
     from repro_torch.serve import EngineConfig
 
@@ -705,13 +794,30 @@ def reference_phase(torch, arch, lengths, max_seq_len):
     specs = [(rng.integers(1, 100, n).astype(np.int32), 6) for n in lengths]
     ecfg = EngineConfig(decode_slots=2, max_seq_len=max_seq_len,
                         page_tokens=8, onboard_pages=4, round_time_s=1e-3)
-    streams, op = [], []
-    for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        eng, rids, _, _, system = serve(torch, cfg, flags, params, specs,
-                                        ecfg, device)
-        streams.append([eng.requests[r].out_tokens for r in rids])
-        op.append(eng.kv.buf.host.fm.op_bytes())
-        system.close()
+    streams, op, margins = [], [], []
+    route = moe_mod.route
+    if cfg.block_type == MOE:
+        # the CPU run records, per router call, its smallest margin between
+        # the k-th and (k+1)-th logit: where a flip of routing could start
+        def recording(p, cfg_, xt):
+            out = route(p, cfg_, xt)
+            top = torch.topk(out[0], cfg_.top_k + 1, dim=-1).values
+            gap = (top[..., -2] - top[..., -1]).reshape(-1)
+            i = int(torch.argmin(gap))
+            margins.append((float(gap[i]), len(margins), i))
+            return out
+        moe_mod.route = recording
+    try:
+        for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            eng, rids, _, _, system = serve(torch, cfg, flags, params, specs,
+                                            ecfg, device)
+            moe_mod.route = route
+            streams.append([eng.requests[r].out_tokens for r in rids])
+            op.append(eng.kv.buf.host.fm.op_bytes())
+            path = eng.stats()["decode_path"]
+            system.close()
+    finally:
+        moe_mod.route = route
     # logits of one prefill of the longest prompt, card against CPU
     tok = torch.as_tensor(max(specs, key=lambda s: len(s[0]))[0][None])
     logits = []
@@ -720,7 +826,13 @@ def reference_phase(torch, arch, lengths, max_seq_len):
         lg, _ = model.prefill(params, {"tokens": tok.to(device)},
                               model.init_cache(1, max_seq_len))
         logits.append(lg.cpu())
-    print(f"phase 5: reduced {arch} f32, card against CPU plain path")
+    print(f"phase 5: reduced {arch} f32, card against CPU plain path, "
+          f"{path} decode")
+    if margins:
+        m, call, token = min(margins)
+        print(f"  smallest router margin (k-th minus (k+1)-th logit) on the "
+              f"CPU: {m:.3e}, layer {call % cfg.num_layers}, token {token} "
+              f"of router call {call} (of {len(margins)})")
     check(f"prefill logits S={tok.shape[1]}", logits[1], logits[0], 1e-4)
     if streams[0] != streams[1] or op[0] != op[1]:
         raise AssertionError(f"token streams or link bytes differ: "
@@ -828,24 +940,34 @@ def main(argv=None) -> int:
         print_ptxas(name, log)
 
     lens, news, serve_lengths, rng = workload()
+    # qwen2-1.5b's vocabulary (151,936 ids); the other phases draw theirs
     prompts = [(rng.integers(0, 151936, n).astype(np.int32), m)
                for n, m in zip(lens, news)]
 
     kernels = kernel_phase(torch, serve_lengths, max(lens))
     kernels.append(rwkv_kernel_phase(torch, max(lens)))
-    result = serve_phase(torch, prompts)
-    rwkv = rwkv_serve_phase(torch, lens, news)
+    served = serve_phases(torch, lens, news, prompts)
+
     for k in kernels:
-        counts = rwkv if k["name"] in RWKV_KERNELS else result
-        k["launches"] = counts["launches"].get(k["name"], 0)
+        by_path = {name: res["launches"][k["name"]]
+                   for name, res in served.items()
+                   if k["name"] in res["launches"]}
+        main_path = "rwkv6-7b" if k["name"] in RWKV_KERNELS else \
+            "qwen2-1.5b"
+        k["launches"] = by_path.get(main_path, 0)
+        k["launches_by_path"] = by_path
     reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "rwkv6-7b", (5, 13, 20, 9, 17, 70), 128)
+    reference_phase(torch, "dbrx-132b", (5, 13, 20, 9, 17), 64)
+    reference_phase(torch, "mixtral-8x22b", (5, 13, 20, 9, 17), 64)
+    reference_phase(torch, "hymba-1.5b", (5, 13, 20, 9, 17, 70), 128)
 
-    for name, res in (("qwen2-1.5b", result), ("rwkv6-7b", rwkv)):
+    for name, res in served.items():
         print(f"serve {name}: {res['tokens_per_s']:.1f} tokens/s, mean TTFT "
               f"{res['mean_ttft_s'] * 1e3:.1f} ms, mean round "
               f"{res['mean_round_s'] * 1e3:.2f} ms, peak "
-              f"{res['peak_mem_gib']:.2f} GiB on {card}")
+              f"{res['peak_mem_gib']:.2f} GiB, link bytes "
+              f"{res['lmb_link_bytes']} on {card}")
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -205,7 +205,14 @@ def list_configs() -> Tuple[str, ...]:
 
 
 def _load_all() -> None:
-    # import for side effect of register(); the port lists only the
-    # configs whose model family it runs so far
+    # import for side effect of register(); the port lists every
+    # decoder-only config (seamless-m4t, encoder-decoder, is not ported)
+    from repro_torch.configs import chameleon_34b  # noqa: F401
+    from repro_torch.configs import command_r_plus_104b  # noqa: F401
+    from repro_torch.configs import dbrx_132b  # noqa: F401
+    from repro_torch.configs import granite_34b  # noqa: F401
+    from repro_torch.configs import h2o_danube_3_4b  # noqa: F401
+    from repro_torch.configs import hymba_1_5b  # noqa: F401
+    from repro_torch.configs import mixtral_8x22b  # noqa: F401
     from repro_torch.configs import qwen2_1_5b  # noqa: F401
     from repro_torch.configs import rwkv6_7b  # noqa: F401

@@ -1,6 +1,7 @@
 """Dispatchers the model calls: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to the kernel's plain version.  There is no fallback:
-on the card a kernel that cannot launch raises.
+on the card a kernel that cannot launch raises.  ``ssd_scan`` has no
+kernel, as in the reference: it runs the chunked torch form everywhere.
 
 Port of ``repro.kernels.ops``.  ``dispatch_counts`` counts calls per
 dispatcher on every device (the counterpart of the reference's
@@ -18,7 +19,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _rw
 
 _calls: Dict[str, int] = {"flash_attention": 0, "paged_attention_decode": 0,
-                          "rwkv6_scan": 0}
+                          "rwkv6_scan": 0, "ssd_scan": 0}
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -43,6 +44,16 @@ def rwkv6_scan(r, k, v, w, u, state, chunk: int = 64):
     if r.is_cuda:
         return _rw.rwkv6_scan_cuda(r, k, v, w, u, state)
     return _rw.rwkv6_scan_plain(r, k, v, w, u, state, chunk=chunk)
+
+
+def ssd_scan(xh, dt, A, Bm, Cm, state):
+    """SSD prefill scan: xh [B,S,H,P]; dt [B,S,H]; A [H]; Bm/Cm [B,S,N];
+    state [B,H,P,N] -> (y, state'), f32.  The reference has no Pallas
+    kernel here (its ``ops.ssd_scan`` runs the chunked XLA form), so on
+    every device this is the port's chunked form, chunk 64."""
+    from repro_torch.models.ssm import ssd_chunked
+    _calls["ssd_scan"] += 1
+    return ssd_chunked(xh, dt, A, Bm, Cm, state)
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):

@@ -40,6 +40,27 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, dim=1), s
 
 
+def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive per-token SSD recurrence, in f32 (see ``models.ssm``).
+
+    xh [B,S,H,P]; dt [B,S,H]; A [H]; Bm/Cm [B,S,N]; state [B,H,P,N]
+    -> (y [B,S,H,P], state').
+      h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T;  y_t = h_t C_t
+    """
+    f32 = torch.float32
+    xh, dt, Bm, Cm = (a.to(f32) for a in (xh, dt, Bm, Cm))
+    s = state.to(f32)
+    ys = []
+    for t in range(xh.shape[1]):
+        a = torch.exp(dt[:, t] * A[None, :])
+        s = s * a[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt[:, t], xh[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", s, Cm[:, t]))
+    return torch.stack(ys, dim=1), s
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:

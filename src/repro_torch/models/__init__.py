@@ -1,4 +1,4 @@
-"""repro_torch.models — the model zoo (DENSE decoder-only so far)."""
+"""repro_torch.models — the model zoo (decoder-only models)."""
 
 from repro_torch.models.zoo import Model, build_model
 

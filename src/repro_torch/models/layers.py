@@ -41,15 +41,26 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- linear init
+def randn_init(gen: torch.Generator, shape, std: float,
+               dtype) -> torch.Tensor:
+    """``randn(shape) * std`` in ``dtype`` on ``gen``'s device, drawn one
+    trailing 2-D matrix at a time into the result: a stacked leaf (dbrx's
+    experts, [L, E, D, F]) never needs a float32 temporary of its size."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    mats = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for m in mats:
+        m.copy_(torch.randn(m.shape, generator=gen, dtype=torch.float32,
+                            device=gen.device) * std)
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                bias: bool = False, scale: Optional[float] = None,
                n: Optional[int] = None) -> Params:
     """``n`` stacks ``n`` independent layers on a leading axis."""
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
     lead = () if n is None else (n,)
-    w = torch.randn((*lead, d_in, d_out), generator=gen,
-                    dtype=torch.float32, device=gen.device)
-    p = {"w": (w * std).to(dtype)}
+    p = {"w": randn_init(gen, (*lead, d_in, d_out), std, dtype)}
     if bias:
         p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
     return p
@@ -64,9 +75,7 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 # --------------------------------------------------------------- embedding
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
-    table = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                        device=gen.device)
-    return {"table": (table * 0.02).to(dtype)}
+    return {"table": randn_init(gen, (vocab, d), 0.02, dtype)}
 
 
 def embed_lookup(p: Params, ids: torch.Tensor) -> torch.Tensor:

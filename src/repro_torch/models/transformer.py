@@ -1,11 +1,11 @@
-"""Decoder-only LM trunk, DENSE and RWKV6 blocks (port of
+"""Decoder-only LM trunk: DENSE, MOE, HYBRID and RWKV6 blocks (port of
 repro.models.transformer).
 
 Layer params are stacked on a leading [L] axis, as in the reference; where
 the reference scans over layers (``scan_layers``), the port runs a Python
-loop over per-layer views.  Caches and pools are updated **in place**.
-MoE, hybrid and encoder-decoder blocks are not ported yet and raise
-``NotImplementedError``.
+loop over per-layer views, so ``models/scan_utils.py`` has no counterpart.
+Caches and pools are updated **in place**.  Encoder-decoder models are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,28 +14,33 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import DENSE, RWKV6, ArchConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, RWKV6, ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.flags import Flags
 from repro_torch.models.layers import (Params, dtype_of, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
 
 #: the recurrent state an RWKV6 layer keeps in the decode cache
 RWKV_KEYS = ("tmix_prev", "wkv", "cmix_prev")
+#: a HYBRID layer's SSM state, kept beside its KV
+SSM_KEYS = ("conv", "ssm")
 
 
 def _layer_keys(cfg: ArchConfig) -> tuple:
     """The [L]-stacked leaves of the decode cache."""
-    return RWKV_KEYS if cfg.block_type == RWKV6 else ("k", "v")
+    if cfg.block_type == RWKV6:
+        return RWKV_KEYS
+    return ("k", "v") + (SSM_KEYS if cfg.block_type == HYBRID else ())
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.encoder_decoder or cfg.block_type not in (DENSE, RWKV6):
-        kind = "encoder-decoder" if cfg.encoder_decoder else cfg.block_type
+    if cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: {kind} blocks are not ported to repro_torch yet "
-            "(only DENSE and RWKV6 decoder-only models are)")
+            f"{cfg.name}: encoder-decoder models are not ported to "
+            "repro_torch yet (only decoder-only models are)")
 
 
 # ---------------------------------------------------------------- layer init
@@ -49,7 +54,14 @@ def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig,
         p["rwkv"] = rwkv_mod.rwkv_init(gen, cfg, n)
         return p
     p["attn"] = attn.attention_init(gen, cfg, n)
-    p["mlp"] = mlp_init(gen, cfg, n)
+    if cfg.block_type == MOE:
+        p["moe"] = moe_mod.moe_init(gen, cfg, n)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, n)
+    if cfg.block_type == HYBRID:
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg, n)
+        p["fuse_norm_a"] = rms_norm_init(cfg.d_model, gen.device, n)
+        p["fuse_norm_s"] = rms_norm_init(cfg.d_model, gen.device, n)
     return p
 
 
@@ -91,11 +103,18 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
                                          device=device)}
     C = cache_len(cfg, seq_len)
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
-    return {"step": 0,
-            "k": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
-            "v": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
-            "pos": torch.full((batch, C), -1, dtype=torch.int32,
-                              device=device)}
+    cache = {"step": 0,
+             "k": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
+             "v": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
+             "pos": torch.full((batch, C), -1, dtype=torch.int32,
+                               device=device)}
+    if cfg.block_type == HYBRID:
+        d_in, H, P = ssm_mod.ssm_dims(cfg)
+        cache["conv"] = torch.zeros((L, batch, ssm_mod.CONV_K - 1, d_in),
+                                    dtype=dt, device=device)
+        cache["ssm"] = torch.zeros((L, batch, H, P, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)
+    return cache
 
 
 def _ring_fill(cache_arr: torch.Tensor, vals: torch.Tensor, C: int) -> None:
@@ -111,6 +130,22 @@ def _ring_fill(cache_arr: torch.Tensor, vals: torch.Tensor, C: int) -> None:
 
 
 # ------------------------------------------------------------ prefill/decode
+def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
+         flags: Flags) -> torch.Tensor:
+    """The block's FFN: experts (MOE; its aux loss serves training only)
+    or the MLP."""
+    if cfg.block_type == MOE:
+        return moe_mod.moe_apply(p["moe"], cfg, x, flags)[0]
+    return mlp_apply(p["mlp"], x, cfg.act)
+
+
+def _fuse(p: Params, cfg: ArchConfig, a: torch.Tensor,
+          s: torch.Tensor) -> torch.Tensor:
+    """HYBRID: the mean of the normed attention and SSM branches."""
+    return 0.5 * (rms_norm(p["fuse_norm_a"], a, cfg.norm_eps)
+                  + rms_norm(p["fuse_norm_s"], s, cfg.norm_eps))
+
+
 def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags):
     """Block over the prompt; returns (x, per-layer cache entries)."""
@@ -126,9 +161,15 @@ def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xn = rms_norm(p["norm1"], x, cfg.norm_eps)
     a, (k, v) = attn.attn_forward(p["attn"], cfg, xn, positions, causal=True,
                                   flags=flags, return_kv=True)
+    entries = {"k": k, "v": v}
+    if cfg.block_type == HYBRID:
+        cs, ss = ssm_mod.ssm_state_init(cfg, x.shape[0], x.device, x.dtype)
+        s, entries["conv"], entries["ssm"] = ssm_mod.ssm_apply(
+            p["ssm"], cfg, xn, cs, ss, flags)
+        a = _fuse(p, cfg, a, s)
     x = x + a
-    y = mlp_apply(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
-    return x + y, {"k": k, "v": v}
+    y = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
+    return x + y, entries
 
 
 def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -178,8 +219,14 @@ def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xn = rms_norm(p["norm1"], x, cfg.norm_eps)
     a, _, _, _ = attn.attn_decode(p["attn"], cfg, xn, layer_cache["k"],
                                   layer_cache["v"], pos_slots, step, flags)
+    if cfg.block_type == HYBRID:
+        s, cs, ss = ssm_mod.ssm_apply(p["ssm"], cfg, xn, layer_cache["conv"],
+                                      layer_cache["ssm"], flags, decode=True)
+        layer_cache["conv"].copy_(cs)
+        layer_cache["ssm"].copy_(ss)
+        a = _fuse(p, cfg, a, s)
     x = x + a
-    y = mlp_apply(p["mlp"], rms_norm(p["norm2"], x, cfg.norm_eps), cfg.act)
+    y = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
     return x + y
 
 
@@ -212,11 +259,12 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
 
     Each layer reads the strided views ``pool[:, l, 0]`` / ``pool[:, l, 1]``
     (no restacking of the pool) and the new token's K/V is scattered into
-    each sequence's tail page in place.  Returns x.  DENSE blocks only.
+    each sequence's tail page in place.  Returns x.  DENSE and MOE blocks
+    (their bodies mirror :func:`block_decode`'s with the paged attention).
     """
-    if cfg.block_type != DENSE:
+    if cfg.block_type not in (DENSE, MOE):
         raise NotImplementedError(
-            f"{cfg.name}: paged decode covers DENSE blocks only")
+            f"{cfg.name}: paged decode covers DENSE and MOE blocks only")
     for l in range(num_layers(layers)):
         lp = layer(layers, l)
         xn = rms_norm(lp["norm1"], x, cfg.norm_eps)
@@ -224,7 +272,5 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                                          pool[:, l, 1], page_table, lengths,
                                          flags)
         x = x + a
-        y = mlp_apply(lp["mlp"], rms_norm(lp["norm2"], x, cfg.norm_eps),
-                      cfg.act)
-        x = x + y
+        x = x + _ffn(lp, cfg, rms_norm(lp["norm2"], x, cfg.norm_eps), flags)
     return x

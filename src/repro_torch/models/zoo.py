@@ -1,9 +1,8 @@
 """Model facade: init / prefill / decode_step / decode_step_paged.
 
-Port of ``repro.models.zoo`` for DENSE and RWKV6 decoder-only models.  A
-``Model``
-owns its device: it runs on CUDA by default and raises when no card is
-present, unless built with ``device="cpu"``.  Methods are functions of
+Port of ``repro.models.zoo`` for decoder-only models (DENSE, MOE, HYBRID,
+RWKV6).  A ``Model`` owns its device: it runs on CUDA by default and
+raises when no card is present, unless built with ``device="cpu"``.  Methods are functions of
 (params, inputs) as in the reference; caches and pools are updated in
 place and also returned.
 """
@@ -15,7 +14,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import DENSE, ArchConfig
+from repro_torch.configs.base import DENSE, MOE, ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
 from repro_torch.models.layers import (dtype_of, embed_init, embed_logits,
@@ -82,11 +81,12 @@ class Model:
 
     def supports_paged_decode(self) -> bool:
         """Whether :meth:`decode_step_paged` covers this architecture (the
-        paged pool keeps absolute positions, so SWA ring caches and RWKV6's
-        recurrent state stay on the dense slot path)."""
+        paged pool keeps absolute positions, so SWA ring caches and the
+        recurrent state of RWKV6 and HYBRID blocks stay on the dense slot
+        path)."""
         cfg = self.cfg
         return (not cfg.encoder_decoder and cfg.sliding_window is None
-                and cfg.block_type == DENSE)
+                and cfg.block_type in (DENSE, MOE))
 
     def decode_step_paged(self, params, pool: torch.Tensor,
                           page_table: torch.Tensor, lengths: torch.Tensor,

@@ -1,10 +1,14 @@
-"""The port's dense model against ``repro.models`` on qwen2-1.5b reduced.
+"""The port's dense model against ``repro.models`` on qwen2-1.5b reduced,
+and on the other decoder-only DENSE configs (granite-34b,
+h2o-danube-3-4b, command-r-plus-104b, chameleon-34b) reduced.
 
 JAX params come from ``Model.init(jax.random.key(0))`` and reach the port
 through ``interop.params_from_numpy``; tokens, pools and tables are made
 with numpy from a seed and fed to both.  Tolerance 1e-4 (f32): the two
 packages sum the same matmuls in different orders.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -171,3 +175,48 @@ def test_paged_and_dense_decode_agree(jax_params):
                                        token)
     dlog, _ = tmodel.decode_step(tparams, cache, token)
     torch.testing.assert_close(plog, dlog, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "h2o-danube-3-4b",
+                                  "command-r-plus-104b", "chameleon-34b"])
+def test_dense_configs_match_reference(arch):
+    """The other decoder-only DENSE configs at ``.reduced()`` (gelu and one
+    KV head, head_dim 120 and a window, qk-norm): a 21-token prompt, past
+    the reduced window of 16, then three decode steps; logits within
+    1e-4."""
+    jcfg = jget_config(arch).reduced()
+    jparams = jbuild_model(jcfg, JFlags(remat=False)).init(
+        jax.random.key(0))
+    jmodel = jbuild_model(jcfg, JFlags(remat=False, use_kernels=True))
+    tmodel = build_model(get_config(arch).reduced(),
+                         Flags(remat=False, use_kernels=True), device="cpu")
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                device="cpu")
+    tokens = np.random.default_rng(5).integers(0, 128, (2, 21)).astype(
+        np.int32)
+    jlogits, jcache = jax.jit(jmodel.prefill)(
+        jparams, {"tokens": jnp.asarray(tokens)}, jmodel.init_cache(2, S_MAX))
+    tlogits, tcache = tmodel.prefill(
+        tparams, {"tokens": torch.from_numpy(tokens)},
+        tmodel.init_cache(2, S_MAX))
+    _close(tlogits, jlogits)
+    nxt = np.asarray([[5], [77]], np.int32)
+    for _ in range(3):
+        jlogits, jcache = jax.jit(jmodel.decode_step)(
+            jparams, jcache, jnp.asarray(nxt))
+        tlogits, tcache = tmodel.decode_step(tparams, tcache,
+                                             torch.from_numpy(nxt))
+        _close(tlogits, jlogits)
+        nxt = np.asarray(jnp.argmax(jlogits, -1))[:, None].astype(np.int32)
+    _close(tcache["k"], jcache["k"])
+    _close(tcache["v"], jcache["v"])
+    assert tmodel.supports_paged_decode() == jmodel.supports_paged_decode()
+
+
+def test_encoder_decoder_models_are_refused():
+    """Every decoder-only block type runs; encoder-decoder models
+    (seamless-m4t) are not ported and raise rather than run wrong."""
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              encoder_decoder=True, num_encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_model(cfg, device="cpu")

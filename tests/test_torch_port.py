@@ -30,7 +30,10 @@ COPIES = [
     "core/placement.py", "core/metrics.py", "core/policy.py",
     "core/overlap.py", "core/faults.py", "core/fabric.py", "core/api.py",
     "core/client.py", "qos/arbiter.py", "qos/slo.py", "rack/topology.py",
-    "models/flags.py", "configs/rwkv6_7b.py",
+    "models/flags.py", "configs/rwkv6_7b.py", "configs/dbrx_132b.py",
+    "configs/mixtral_8x22b.py", "configs/hymba_1_5b.py",
+    "configs/granite_34b.py", "configs/h2o_danube_3_4b.py",
+    "configs/command_r_plus_104b.py", "configs/chameleon_34b.py",
 ]
 
 
@@ -50,7 +53,11 @@ def test_config_base_differs_only_in_load_all():
     assert strip((PORT / "configs/base.py").read_text()) == \
         strip(_rewritten("configs/base.py"))
     from repro_torch.configs.base import list_configs
-    assert list_configs() == ("qwen2-1.5b", "rwkv6-7b")
+    # every config of the reference but the encoder-decoder one
+    assert list_configs() == (
+        "chameleon-34b", "command-r-plus-104b", "dbrx-132b", "granite-34b",
+        "h2o-danube-3-4b", "hymba-1.5b", "mixtral-8x22b", "qwen2-1.5b",
+        "rwkv6-7b")
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
