@@ -34,7 +34,9 @@ Phases (any failure raises and the script exits non-zero):
      ``scaled_dot_product_attention`` timed both ways as a yardstick the
      port never calls.  Paged and flash are also checked at dbrx-132b's
      shapes (48 heads over 8 KV heads) and flash at hymba-1.5b's (25 over
-     5, head_dim 64, window 1024, S = 256 and 1100);
+     5, head_dim 64, window 1024, S = 256 and 1100) and at
+     seamless-m4t-large-v2's decoder prefill (B = 8, S = 32, 16 heads over
+     16 KV heads, head_dim 64), which gets its own ``kernels`` row;
   3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
@@ -52,10 +54,18 @@ Phases (any failure raises and the script exits non-zero):
      width and depth on the dense slot path, its KV in LMB pages: one
      flash launch and one ``ssd_scan`` call per layer and prompt; the
      breakdown times the SSM branch apart;
+  4d. seamless-m4t-large-v2 (encoder-decoder) at full width and depth
+     through ``Model`` (the engine refuses it, as the reference's cannot
+     feed its source embeddings): 8 sources of 512 frame embeddings, a
+     32-token target prefix, 32 greedy decode steps; encode, decoder
+     prefill and decode timed apart; one flash launch per decoder layer
+     and prefill (the encoder is not causal and takes no kernel);
   5. reference: each reduced config in f32 (qwen2-1.5b, rwkv6-7b,
      dbrx-132b, mixtral-8x22b, hymba-1.5b) served on the card and on the
      CPU (plain versions, which the tests hold to the JAX reference) must
-     give the same logits, token streams and link bytes.
+     give the same logits, token streams and link bytes; reduced
+     seamless-m4t-large-v2 the same prefill logits (within 1e-5) and
+     greedy token streams through ``Model``.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
@@ -98,9 +108,17 @@ ATTN_SHAPE = (12, 2, 128, 32, 16)
 #: dbrx-132b's attention (H, KV, hd), and hymba-1.5b's with its window
 DBRX_ATTN = (48, 8, 128)
 HYMBA_ATTN = (25, 5, 64, 1024)
+#: seamless-m4t-large-v2's decoder prefill in phase 4d: (B, S, H, KV, hd),
+#: multi-head (KV = H, so one query head per KV head)
+SEAMLESS_FLASH = (8, 32, 16, 16, 64)
+#: phase 4d's workload: 8 sources of 512 frames, a 32-token target prefix,
+#: 32 greedy decode steps into a self-attention cache of 128 slots
+SEAMLESS_RUN = dict(batch=8, src_len=512, prefix=32, steps=32, cache=128)
 #: the layers of dbrx-132b's 40 that one 80 GB card holds in bf16 with
 #: room to serve (6.52 GB a layer, 1.23 GB of embedding)
 DBRX_LAYERS = 8
+#: seamless-m4t-large-v2's parameters (the reference's abstract_params)
+SEAMLESS_PARAMS = 1_369_826_304
 
 
 def card_line() -> str:
@@ -247,7 +265,8 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     def plan(B, mp):
         return pa.split_plan(B, KV, mp, G=H // KV, sm_count=sms)
 
-    errs = {"paged_attention": 0.0, "flash_attention": 0.0}
+    errs = {"paged_attention": 0.0, "flash_attention": 0.0,
+            "flash_seamless": 0.0}
     print(f"phase 2: kernels against their plain versions ({sms} SMs)")
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
@@ -307,6 +326,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         hh, hkv, hd_h, hwin = HYMBA_ATTN
         for (B, S, h, kv, d, window, causal) in (
                 (1, prompt_max, H, KV, hd, None, True),
+                (*SEAMLESS_FLASH, None, True),
                 (1, prompt_max, *DBRX_ATTN, None, True),
                 (1, prompt_max, hh, hkv, hd_h, hwin, True),
                 (1, 1100, hh, hkv, hd_h, hwin, True),
@@ -335,6 +355,9 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             if dtype == torch.bfloat16 and S == prompt_max and \
                     window is None and h == H:
                 errs["flash_attention"] = e
+            if dtype == torch.bfloat16 and (B, S, h, kv, d) == \
+                    SEAMLESS_FLASH:
+                errs["flash_seamless"] = e
     torch.cuda.synchronize()
 
     # timing at the main path's shapes, bf16
@@ -350,23 +373,11 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     pa_times = both_times(lambda: pa.paged_attention_cuda(*args))
     pa_plain_ms = time_ms(lambda: pa.paged_attention_plain(*args))
 
-    S = prompt_max
-    fa_flops = 4 * (S * (S + 1) // 2) * hd * H
-    fa_bytes = (2 * S * H * hd + 2 * S * KV * hd) * esz
-    fa_bound_flops = fa_flops / PEAK_FLOPS["bfloat16"]
-    fa_bound_bytes = fa_bytes / HBM_BYTES_PER_S
-    fa_bound = max(fa_bound_flops, fa_bound_bytes) * 1e3
-    fa_times = both_times(lambda: fa.flash_attention_cuda(q, k, v))
-    fa_plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-    lib = both_times(sdpa)
-    lib_err = max_err(sdpa().transpose(1, 2),
-                      fa.flash_attention_plain(q, k, v))
-    print(f"  sdpa vs flash plain bf16 S={S}: max_abs_err={lib_err:.3e}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B_s, S_s, H_s, KV_s, hd_s = SEAMLESS_FLASH
+    seamless = tuple(torch.randn((B_s, S_s, h, hd_s), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for h in (H_s, KV_s, KV_s))
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -379,17 +390,46 @@ def kernel_phase(torch, serve_lengths, prompt_max):
          "library_ms": None, "device_ms": pa_times["device_ms"],
          "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
                   f"live_tokens={live} bf16, plan {plan(B, MP)}"},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:94",
-         "launches": 0, "max_abs_err": errs["flash_attention"],
-         "ms": fa_times["ms"], "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
-         "bound_by": ("operations" if fa_bound_flops >= fa_bound_bytes
-                      else "bytes"),
-         "library_ms": lib["ms"], "device_ms": fa_times["device_ms"],
-         "library_device_ms": lib["device_ms"],
-         "shape": f"B=1 S={S} H={H} KV={KV} hd={hd} causal bf16"},
+        flash_row(torch, F, fa, (q, k, v), errs["flash_attention"],
+                  "qwen2-1.5b"),
+        flash_row(torch, F, fa, seamless, errs["flash_seamless"],
+                  "seamless-m4t-large-v2"),
     ]
+
+
+def flash_row(torch, F, fa, qkv, err, path) -> dict:
+    """The flash kernel's ``kernels`` row at one path's prefill shape
+    (bf16, causal): both times, the plain version's, the bound, and
+    ``scaled_dot_product_attention``'s times and its error against the
+    plain version."""
+    q, k, v = qkv
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    flops = 4 * B * (S * (S + 1) // 2) * hd * H
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * q.element_size()
+    by_ops = flops / PEAK_FLOPS["bfloat16"]
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    times = both_times(lambda: fa.flash_attention_cuda(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in qkv)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib = both_times(sdpa)
+    lib_err = max_err(sdpa().transpose(1, 2),
+                      fa.flash_attention_plain(q, k, v))
+    print(f"  sdpa vs flash plain bf16 B={B} S={S} H={H} KV={KV}: "
+          f"max_abs_err={lib_err:.3e}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:94",
+            "launches": 0, "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v)),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": lib["ms"], "device_ms": times["device_ms"],
+            "library_device_ms": lib["device_ms"], "path": path,
+            "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} causal bf16"}
 
 
 def close(name: str, got, want, tol: float) -> float:
@@ -766,6 +806,177 @@ def serve_phases(torch, lens, news, prompts) -> dict:
     return served
 
 
+def seamless_phase(torch) -> dict:
+    """Phase 4d: full-width seamless-m4t-large-v2 in bf16 through the
+    port's ``Model`` (the engine refuses encoder-decoder models, as the
+    reference's cannot feed them): random weights from seed 0, 8 sources
+    of 512 frame embeddings from ``frontend.audio_frames``, a 32-token
+    target prefix from the model's vocabulary, then 32 greedy decode
+    steps into a cache of 128 slots, the argmax on the card.  A warm-up
+    prefill and step first; launch counts are reset just before the
+    measured prefill and read after the last step.  The params are
+    dropped on return."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda_build, ops
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models.flags import Flags
+    from repro_torch.models.frontend import audio_frames
+
+    left = free_card(torch)
+    if left > 1.0:
+        raise AssertionError(f"{left:.2f} GiB of earlier phases still on "
+                             "the card")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("seamless-m4t-large-v2")
+    run = SEAMLESS_RUN
+    B, steps = run["batch"], run["steps"]
+    model = build_model(cfg, Flags(remat=False, use_kernels=True),
+                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.monotonic()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"phase 4d: {cfg.name} full width, {cfg.num_encoder_layers} "
+          f"encoder + {cfg.num_layers} decoder layers, {n_params} params "
+          f"bf16, init {time.monotonic() - t:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if n_params != SEAMLESS_PARAMS:
+        raise AssertionError(f"{n_params} params, not {SEAMLESS_PARAMS}")
+    src = audio_frames(gen, B, run["src_len"], cfg.d_model)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, run["prefix"])).astype(np.int32),
+        device="cuda"), "src_emb": src}
+
+    def greedy(logits):
+        return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+    # warm-up at the phase's shapes (cuBLAS handles, the allocator)
+    cache = model.init_cache(B, run["cache"], run["src_len"])
+    logits, cache = model.prefill(params, batch, cache)
+    model.decode_step(params, cache, greedy(logits))
+    del cache, logits
+    torch.cuda.synchronize()
+
+    encode, enc_s = encdec_mod.encode, [0.0]
+
+    def timed_encode(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        enc_s[0] += time.monotonic() - t0
+        return out
+
+    cuda_build.reset_launch_counts()
+    calls = ops.dispatch_counts()
+    encdec_mod.encode = timed_encode
+    try:
+        t = time.monotonic()
+        cache = model.init_cache(B, run["cache"], run["src_len"])
+        logits, cache = model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t
+    finally:
+        encdec_mod.encode = encode
+    prefill_calls = 1
+    tok = greedy(logits)
+    first = logits
+    out = [tok]
+    t = time.monotonic()
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, cache, tok)
+        tok = greedy(logits)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.monotonic() - t
+    launches = cuda_build.launch_counts()
+    dispatches = {k: v - calls[k] for k, v in ops.dispatch_counts().items()}
+    tokens = torch.cat(out, dim=1).cpu()
+    V = cfg.padded_vocab
+    if tuple(first.shape) != (B, V) or tuple(logits.shape) != (B, V):
+        raise AssertionError(f"logits {tuple(logits.shape)}, not {(B, V)}")
+    if not (torch.isfinite(first).all() and torch.isfinite(logits).all()):
+        raise AssertionError("seamless logits are not finite")
+    if not ((tokens >= 0).all() and (tokens < V).all()):
+        raise AssertionError("seamless tokens out of the vocabulary")
+    if cache["step"] != run["prefix"] + steps or int(
+            (cache["pos"] >= 0).sum()) != B * (run["prefix"] + steps):
+        raise AssertionError("seamless decode cache positions are wrong")
+    want = {"flash_attention": cfg.num_layers * prefill_calls}
+    got = {k: launches.get(k, 0) for k in KERNEL_SOURCES}
+    if got != {**dict.fromkeys(KERNEL_SOURCES, 0), **want} or \
+            dispatches["flash_attention"] != want["flash_attention"]:
+        raise AssertionError(f"{cfg.name}: launches {got}, dispatches "
+                             f"{dispatches}, want {want}")
+    cross = sum(cache[k].numel() * cache[k].element_size()
+                for k in ("cross_k", "cross_v"))
+    self_kv = sum(cache[k].numel() * cache[k].element_size()
+                  for k in ("k", "v"))
+    res = {"params": n_params, "encode_s": enc_s[0],
+           "decoder_prefill_s": prefill_s - enc_s[0],
+           "prefill_s": prefill_s, "decode_steps": steps,
+           "mean_step_s": decode_s / steps,
+           "tokens_per_s": B * steps / decode_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "cross_kv_bytes": cross, "self_kv_bytes": self_kv,
+           "launches": launches, "dispatches": dispatches,
+           "prefill_calls": prefill_calls,
+           "first_tokens": tokens[0, :8].tolist()}
+    print("  seamless: " + json.dumps(res))
+    print(f"  counts as expected: {want}")
+    return res
+
+
+def encdec_reference_phase(torch) -> None:
+    """Phase 5 for reduced seamless-m4t-large-v2 in f32: the card
+    (kernels) against the CPU (plain versions) through ``Model`` on the
+    same params, source frames and target prefix (13 target tokens into a
+    cache of 32, 19 source frames): prefill logits within 1e-5 (TF32
+    off) and identical greedy token streams over 8 decode steps."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.models.frontend import audio_frames
+
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    flags = Flags(remat=False, use_kernels=True)
+    cpu_params = build_model(cfg, flags, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gpu_params = _to(cpu_params, "cuda")
+    src = audio_frames(torch.Generator().manual_seed(1), 2, 19, cfg.d_model,
+                       torch.float32)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        1, 100, (2, 13)).astype(np.int32))
+    first, streams, last = [], [], []
+    for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        model = build_model(cfg, flags, device=device)
+        lg, cache = model.prefill(
+            params, {"tokens": tokens.to(device), "src_emb": src.to(device)},
+            model.init_cache(2, 32, 19))
+        first.append(lg.cpu())
+        tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        out = [tok]
+        for _ in range(8):
+            lg, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            out.append(tok)
+        streams.append(torch.cat(out, 1).cpu().tolist())
+        last.append(lg.cpu())
+    print("phase 5: reduced seamless-m4t-large-v2 f32, card against CPU "
+          "plain path, through Model")
+    check("prefill logits S=13 src=19", first[1], first[0], 1e-5)
+    print(f"  last decode logits: max_abs_err="
+          f"{max_err(last[1], last[0]):.3e}")
+    if streams[0] != streams[1]:
+        raise AssertionError(f"token streams differ: {streams}")
+    print(f"  token streams identical ({sum(map(len, streams[0]))} tokens)")
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -947,13 +1158,19 @@ def main(argv=None) -> int:
     kernels = kernel_phase(torch, serve_lengths, max(lens))
     kernels.append(rwkv_kernel_phase(torch, max(lens)))
     served = serve_phases(torch, lens, news, prompts)
+    seamless = seamless_phase(torch)
+    free_card(torch)
 
     for k in kernels:
         by_path = {name: res["launches"][k["name"]]
                    for name, res in served.items()
                    if k["name"] in res["launches"]}
-        main_path = "rwkv6-7b" if k["name"] in RWKV_KERNELS else \
-            "qwen2-1.5b"
+        if k["name"] in seamless["launches"]:
+            by_path["seamless-m4t-large-v2"] = \
+                seamless["launches"][k["name"]]
+        main_path = k.get("path") or (
+            "rwkv6-7b" if k["name"] in RWKV_KERNELS else "qwen2-1.5b")
+        k["path"] = main_path
         k["launches"] = by_path.get(main_path, 0)
         k["launches_by_path"] = by_path
     reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
@@ -961,6 +1178,7 @@ def main(argv=None) -> int:
     reference_phase(torch, "dbrx-132b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "mixtral-8x22b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "hymba-1.5b", (5, 13, 20, 9, 17, 70), 128)
+    encdec_reference_phase(torch)
 
     for name, res in served.items():
         print(f"serve {name}: {res['tokens_per_s']:.1f} tokens/s, mean TTFT "
@@ -968,6 +1186,11 @@ def main(argv=None) -> int:
               f"{res['mean_round_s'] * 1e3:.2f} ms, peak "
               f"{res['peak_mem_gib']:.2f} GiB, link bytes "
               f"{res['lmb_link_bytes']} on {card}")
+    print(f"seamless-m4t-large-v2: encode {seamless['encode_s'] * 1e3:.1f} "
+          f"ms, decoder prefill {seamless['decoder_prefill_s'] * 1e3:.1f} "
+          f"ms, mean decode step {seamless['mean_step_s'] * 1e3:.2f} ms, "
+          f"{seamless['tokens_per_s']:.1f} tokens/s, peak "
+          f"{seamless['peak_mem_gib']:.2f} GiB on {card}")
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -205,8 +205,8 @@ def list_configs() -> Tuple[str, ...]:
 
 
 def _load_all() -> None:
-    # import for side effect of register(); the port lists every
-    # decoder-only config (seamless-m4t, encoder-decoder, is not ported)
+    # import for side effect of register(); one per line so each alias
+    # carries its own noqa (ruff reports F401 at the alias's line)
     from repro_torch.configs import chameleon_34b  # noqa: F401
     from repro_torch.configs import command_r_plus_104b  # noqa: F401
     from repro_torch.configs import dbrx_132b  # noqa: F401
@@ -216,3 +216,4 @@ def _load_all() -> None:
     from repro_torch.configs import mixtral_8x22b  # noqa: F401
     from repro_torch.configs import qwen2_1_5b  # noqa: F401
     from repro_torch.configs import rwkv6_7b  # noqa: F401
+    from repro_torch.configs import seamless_m4t_large_v2  # noqa: F401

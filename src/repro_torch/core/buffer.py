@@ -1,9 +1,11 @@
 """LinkedBuffer: a logical paged array spanning onboard memory and the LMB.
 
 PyTorch port of ``repro.core.buffer``: the logic is the reference's line
-for line and only the array operations changed.  Reads return tensors that
-never alias a pool (the executor gathers into fresh tensors), and pool
-writes happen in place through the executor, which still returns the pool.
+for line and only the array operations changed, but for one fault of the
+reference that the port routes around (writes to shared pages, below).
+Reads return tensors that never alias a pool (the executor gathers into
+fresh tensors), and pool writes happen in place through the executor,
+which still returns the pool.
 
 This is the consumer-facing realization of the paper's idea: a device whose
 working set exceeds onboard memory sees one flat buffer; hot pages live in
@@ -26,8 +28,16 @@ Capabilities:
     paper's PCIe devices don't participate in coherence, and neither do we:
     ownership transfer is explicit)
   * pin/unpin for pages a compiled step will touch (DMA in flight)
-  * refcounted page sharing + copy-on-write (zero-copy prefix sharing, the
-    paper's SSD→accelerator shared-buffer scenario)
+  * refcounted page sharing (zero-copy prefix sharing, the paper's
+    SSD→accelerator shared-buffer scenario).  ``share`` hands every holder
+    the same logical index, so a write to a shared page writes through in
+    place and every holder sees it.  The reference copies the page on
+    write (``_cow``) into a new entry under the same index: the copy is
+    what every holder then reads, the old physical page is reachable by
+    no one (its onboard or LMB slot leaks, and ``check_invariants``
+    fails), and the refcount drops to 1, so one holder's ``release``
+    frees the page under the others.  The port keeps the refcount and
+    leaks nothing; the data every holder reads is the reference's.
   * degraded mode on expander failure (availability: fall back to
     onboard-only, shedding capacity rather than dying); on a pooled
     fabric a partial failure only invalidates the pages homed on the
@@ -960,11 +970,10 @@ class LinkedBuffer:
         return self.executor.read_page(self._onboard_pool, slot)
 
     def write(self, page: int, data) -> None:
+        """Write one page; a shared page is written through in place (the
+        reference's copy-on-write is routed around: see the module's
+        docstring)."""
         self._check(page)
-        entry = self._pages[page]
-        if entry.refcount > 1:
-            self._cow(page)
-            entry = self._pages[page]
         data = self._as_pages(data)
         if tuple(data.shape) != self.page_shape:
             raise ValueError(
@@ -1023,8 +1032,6 @@ class LinkedBuffer:
                 f"{(len(pages), *self.page_shape)}")
         for p in dict.fromkeys(pages):
             self._check(p)
-            if self._pages[p].refcount > 1:
-                self._cow(p)
         order = list(dict.fromkeys(pages))
         last = {p: i for i, p in enumerate(pages)}
         if len(order) == 1:
@@ -1103,9 +1110,10 @@ class LinkedBuffer:
         else:
             self.overlap.start_window(seconds)
 
-    # ------------------------------------------------------------- share / COW
+    # ------------------------------------------------------------------ share
     def share(self, page: int) -> int:
-        """Refcount++ (zero-copy share). Returns the same logical index."""
+        """Refcount++ (zero-copy share). Returns the same logical index,
+        so every holder reads and writes the one page."""
         self._check(page)
         self._pages[page].refcount += 1
         return page
@@ -1136,23 +1144,6 @@ class LinkedBuffer:
             self._lmb_owner.pop(entry.slot, None)
         entry.tier, entry.slot, entry.dirty = None, -1, False
         entry.refcount = 0
-
-    def _cow(self, page: int) -> None:
-        """Copy-on-write: writer gets a private copy of a shared page."""
-        entry = self._pages[page]
-        data = self.read(page)
-        entry.refcount -= 1
-        new = PageEntry()
-        self._pages[page] = new
-        slot = self._onboard_slot_alloc()
-        self._onboard_pool = self.executor.write_page(
-            self._onboard_pool, slot, data)
-        new.tier, new.slot, new.dirty = ONBOARD, slot, True
-        self._onboard_owner[slot] = page
-        self.policy.on_insert(page)
-        # the old physical page stays where it is, now owned by the sharers;
-        # bookkeeping for "who else maps it" lives in the serving layer,
-        # which tracks logical page ids per request.
 
     # --------------------------------------------------------- hot-page moves
     def page_expander(self, page: int) -> Optional[int]:

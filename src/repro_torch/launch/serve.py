@@ -5,13 +5,15 @@
 
 Port of ``repro.launch.serve`` (the ``.reduced()`` config, random weights
 from a seeded ``torch.Generator``).  Runs on the CUDA device unless
-``--device cpu`` is given.
+``--device cpu`` is given.  An encoder-decoder config (seamless-m4t)
+exits with the engine's refusal: requests carry no source embeddings.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
 from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
+from repro_torch.serve.engine import check_servable
 
 
 def main(argv=None) -> None:
@@ -38,6 +41,10 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    try:
+        check_servable(cfg)
+    except ValueError as exc:
+        sys.exit(f"repro_torch.launch.serve: {exc}")
     model = build_model(cfg, Flags(remat=False, use_kernels=True),
                         device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))

@@ -203,3 +203,34 @@ def attn_decode_paged(p: Params, cfg, x: torch.Tensor,
                                       (lengths + 1).to(torch.int32))
     y = dense(p["wo"], out.reshape(B, 1, H * hd))
     return y, k_pages, v_pages
+
+
+# ---------------------------------------------------------- cross-attention
+def cross_attn_init(gen: torch.Generator, cfg,
+                    n: Optional[int] = None) -> Params:
+    return attention_init(gen, cfg, n)
+
+
+def cross_attn(p: Params, cfg, x: torch.Tensor, enc_k: torch.Tensor,
+               enc_v: torch.Tensor, enc_mask: Optional[torch.Tensor] = None,
+               flags: Flags = DEFAULT_FLAGS) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (no RoPE, not
+    causal).  ``enc_mask`` is accepted and unused, as in the reference."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    q = dense(p["wq"], x).reshape(B, S, H, hd)
+    Sk = enc_k.shape[1]
+    qpos = torch.arange(S, device=x.device)[None].expand(B, S)
+    kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
+    out = chunked_attention(q, enc_k, enc_v, qpos, kpos, causal=False,
+                            flags=flags)
+    return dense(p["wo"], out.reshape(B, S, -1))
+
+
+def cross_kv(p: Params, cfg, enc_out: torch.Tensor):
+    """Precompute cross-attention K/V from the encoder output."""
+    B, Sk, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim_
+    k = dense(p["wk"], enc_out).reshape(B, Sk, KV, hd)
+    v = dense(p["wv"], enc_out).reshape(B, Sk, KV, hd)
+    return k, v

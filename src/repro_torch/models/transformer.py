@@ -1,11 +1,13 @@
-"""Decoder-only LM trunk: DENSE, MOE, HYBRID and RWKV6 blocks (port of
-repro.models.transformer).
+"""LM trunk: DENSE, MOE, HYBRID and RWKV6 blocks, full-sequence, prefill
+and decode (port of repro.models.transformer).
 
 Layer params are stacked on a leading [L] axis, as in the reference; where
 the reference scans over layers (``scan_layers``), the port runs a Python
 loop over per-layer views, so ``models/scan_utils.py`` has no counterpart.
-Caches and pools are updated **in place**.  Encoder-decoder models are not
-ported yet and raise ``NotImplementedError``.
+Caches and pools are updated **in place**.  The full-sequence trunk
+(:func:`trunk_train`) is the forward pass only: it serves the
+encoder-decoder's encoder (``models/encdec.py``); the reference's
+``_remat`` (activation checkpointing for training) is not ported.
 """
 
 from __future__ import annotations
@@ -36,18 +38,11 @@ def _layer_keys(cfg: ArchConfig) -> tuple:
     return ("k", "v") + (SSM_KEYS if cfg.block_type == HYBRID else ())
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported to "
-            "repro_torch yet (only decoder-only models are)")
-
-
 # ---------------------------------------------------------------- layer init
-def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig,
-                        n: int) -> Params:
-    """[L]-stacked layer params drawn from ``gen``."""
-    check_supported(cfg)
+def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig, n: int,
+                        cross: bool = False) -> Params:
+    """[L]-stacked layer params drawn from ``gen``; ``cross`` adds a
+    decoder layer's cross-attention and its norm."""
     p: Params = {"norm1": rms_norm_init(cfg.d_model, gen.device, n),
                  "norm2": rms_norm_init(cfg.d_model, gen.device, n)}
     if cfg.block_type == RWKV6:
@@ -62,6 +57,9 @@ def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig,
         p["ssm"] = ssm_mod.ssm_init(gen, cfg, n)
         p["fuse_norm_a"] = rms_norm_init(cfg.d_model, gen.device, n)
         p["fuse_norm_s"] = rms_norm_init(cfg.d_model, gen.device, n)
+    if cross:
+        p["cross"] = attn.cross_attn_init(gen, cfg, n)
+        p["norm3"] = rms_norm_init(cfg.d_model, gen.device, n)
     return p
 
 
@@ -73,6 +71,61 @@ def layer(layers: Params, l: int) -> Params:
 
 def num_layers(layers: Params) -> int:
     return layers["norm1"]["scale"].shape[0]
+
+
+# -------------------------------------------------------------- block bodies
+def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor, flags: Flags):
+    """The block's FFN: experts (MOE) or the MLP.  Returns (y, aux loss);
+    the MLP's aux is 0."""
+    if cfg.block_type == MOE:
+        return moe_mod.moe_apply(p["moe"], cfg, x, flags)
+    return mlp_apply(p["mlp"], x, cfg.act), 0.0
+
+
+def _fuse(p: Params, cfg: ArchConfig, a: torch.Tensor,
+          s: torch.Tensor) -> torch.Tensor:
+    """HYBRID: the mean of the normed attention and SSM branches."""
+    return 0.5 * (rms_norm(p["fuse_norm_a"], a, cfg.norm_eps)
+                  + rms_norm(p["fuse_norm_s"], s, cfg.norm_eps))
+
+
+def block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, flags: Flags,
+                causal: bool = True):
+    """Full-sequence block (the encoder; training's forward).  Returns
+    (x, aux loss)."""
+    if cfg.block_type == RWKV6:
+        prev, st, _ = rwkv_mod.rwkv_state_init(cfg, x.shape[0], x.device,
+                                               x.dtype)
+        h, _, _ = rwkv_mod.time_mix(p["rwkv"], cfg, rms_norm(
+            p["norm1"], x, cfg.norm_eps), prev, st, flags)
+        x = x + h
+        h, _ = rwkv_mod.channel_mix(p["rwkv"], cfg, rms_norm(
+            p["norm2"], x, cfg.norm_eps), prev)
+        return x + h, 0.0
+    xn = rms_norm(p["norm1"], x, cfg.norm_eps)
+    a = attn.attn_forward(p["attn"], cfg, xn, positions, causal=causal,
+                          flags=flags)
+    if cfg.block_type == HYBRID:
+        cs, ss = ssm_mod.ssm_state_init(cfg, x.shape[0], x.device, x.dtype)
+        s, _, _ = ssm_mod.ssm_apply(p["ssm"], cfg, xn, cs, ss, flags)
+        a = _fuse(p, cfg, a, s)
+    x = x + a
+    y, aux = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
+    return x + y, aux
+
+
+def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, flags: Flags,
+                causal: bool = True):
+    """Loop over layers for full sequences; returns (x, the layers' summed
+    aux loss as an f32 scalar tensor)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l in range(num_layers(layers)):
+        x, a = block_train(layer(layers, l), cfg, x, positions, flags,
+                           causal)
+        aux = aux + a
+    return x, aux
 
 
 # ----------------------------------------------------------------- caches
@@ -87,7 +140,6 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
     """Zeroed decode cache (stacked [L] leaves).  pos slots start at -1;
     ``step`` is a host integer.  An RWKV6 cache holds each layer's
     recurrent state and no KV."""
-    check_supported(cfg)
     L = n_layers or cfg.num_layers
     dt = dtype_of(cfg)
     if cfg.block_type == RWKV6:
@@ -130,22 +182,6 @@ def _ring_fill(cache_arr: torch.Tensor, vals: torch.Tensor, C: int) -> None:
 
 
 # ------------------------------------------------------------ prefill/decode
-def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor,
-         flags: Flags) -> torch.Tensor:
-    """The block's FFN: experts (MOE; its aux loss serves training only)
-    or the MLP."""
-    if cfg.block_type == MOE:
-        return moe_mod.moe_apply(p["moe"], cfg, x, flags)[0]
-    return mlp_apply(p["mlp"], x, cfg.act)
-
-
-def _fuse(p: Params, cfg: ArchConfig, a: torch.Tensor,
-          s: torch.Tensor) -> torch.Tensor:
-    """HYBRID: the mean of the normed attention and SSM branches."""
-    return 0.5 * (rms_norm(p["fuse_norm_a"], a, cfg.norm_eps)
-                  + rms_norm(p["fuse_norm_s"], s, cfg.norm_eps))
-
-
 def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags):
     """Block over the prompt; returns (x, per-layer cache entries)."""
@@ -168,7 +204,7 @@ def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
             p["ssm"], cfg, xn, cs, ss, flags)
         a = _fuse(p, cfg, a, s)
     x = x + a
-    y = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
+    y, _ = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
     return x + y, entries
 
 
@@ -176,7 +212,6 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags,
                   cache: Dict[str, Any]):
     """Prefill trunk: loop over layers, filling a fresh cache [L, ...]."""
-    check_supported(cfg)
     S = x.shape[1]
     new_cache = dict(cache)
     keys = _layer_keys(cfg)
@@ -226,7 +261,7 @@ def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
         layer_cache["ssm"].copy_(ss)
         a = _fuse(p, cfg, a, s)
     x = x + a
-    y = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
+    y, _ = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
     return x + y
 
 
@@ -234,7 +269,6 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict[str, Any], flags: Flags):
     """Loop over layers against the per-layer caches; the cache is
     updated in place and returned."""
-    check_supported(cfg)
     step = int(cache["step"])
     keys = _layer_keys(cfg)
     # every layer writes the same new position into its slot (in place),
@@ -272,5 +306,6 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                                          pool[:, l, 1], page_table, lengths,
                                          flags)
         x = x + a
-        x = x + _ffn(lp, cfg, rms_norm(lp["norm2"], x, cfg.norm_eps), flags)
+        x = x + _ffn(lp, cfg, rms_norm(lp["norm2"], x, cfg.norm_eps),
+                     flags)[0]
     return x

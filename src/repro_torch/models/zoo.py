@@ -1,27 +1,31 @@
 """Model facade: init / prefill / decode_step / decode_step_paged.
 
-Port of ``repro.models.zoo`` for decoder-only models (DENSE, MOE, HYBRID,
-RWKV6).  A ``Model`` owns its device: it runs on CUDA by default and
-raises when no card is present, unless built with ``device="cpu"``.  Methods are functions of
-(params, inputs) as in the reference; caches and pools are updated in
-place and also returned.
+Port of ``repro.models.zoo`` for every config of the reference: the
+decoder-only block types (DENSE, MOE, HYBRID, RWKV6) and the
+encoder-decoder (seamless-m4t, ``models/encdec.py``; its prefill reads
+the source frame embeddings ``batch["src_emb"]``).  A ``Model`` owns its
+device: it runs on CUDA by default and raises when no card is present,
+unless built with ``device="cpu"``.  Methods are functions of (params,
+inputs) as in the reference; caches and pools are updated in place and
+also returned.  ``loss`` waits for the training path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import DENSE, MOE, ArchConfig
 from repro_torch.devices import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
 from repro_torch.models.layers import (dtype_of, embed_init, embed_logits,
                                        embed_lookup, rms_norm, rms_norm_init)
-from repro_torch.models.transformer import (check_supported, init_cache,
-                                            stacked_layers_init, trunk_decode,
-                                            trunk_decode_paged, trunk_prefill)
+from repro_torch.models.transformer import (init_cache, stacked_layers_init,
+                                            trunk_decode, trunk_decode_paged,
+                                            trunk_prefill)
 
 
 @dataclasses.dataclass
@@ -32,7 +36,6 @@ class Model:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        check_supported(self.cfg)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
@@ -42,30 +45,50 @@ class Model:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
-        return {
+        params: Dict[str, Any] = {
             "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
                                 dtype_of(cfg)),
             "final_norm": rms_norm_init(cfg.d_model, self.device),
-            "trunk": stacked_layers_init(generator, cfg, cfg.num_layers),
         }
+        if cfg.encoder_decoder:
+            params["trunk"] = encdec_mod.encdec_init(generator, cfg)
+        else:
+            params["trunk"] = stacked_layers_init(generator, cfg,
+                                                  cfg.num_layers)
+        return params
 
     def _readout(self, params, x: torch.Tensor) -> torch.Tensor:
         xn = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         return embed_logits(params["embed"], xn)
 
     # --------------------------------------------------------------- prefill
-    def init_cache(self, batch: int, seq_len: int) -> Dict[str, Any]:
+    def init_cache(self, batch: int, seq_len: int,
+                   src_len: Optional[int] = None) -> Dict[str, Any]:
+        if self.cfg.encoder_decoder:
+            return encdec_mod.init_encdec_cache(self.cfg, batch, seq_len,
+                                                src_len or seq_len,
+                                                self.device)
         return init_cache(self.cfg, batch, seq_len, self.device)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache: Dict[str, Any]):
-        """Prompt pass; returns (last-token logits [B, V], filled cache)."""
+        """Prompt pass; returns (last-token logits [B, V], filled cache).
+        An encoder-decoder encodes ``batch["src_emb"]`` [B, S_src, D] and
+        takes ``batch["tokens"]`` as the target prefix."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        B, S = tokens.shape
         x = embed_lookup(params["embed"], tokens)
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        x, cache = trunk_prefill(params["trunk"], self.cfg, x, positions,
-                                 self.flags, cache)
+        if cfg.encoder_decoder:
+            enc_out = encdec_mod.encode(params["trunk"], cfg,
+                                        batch["src_emb"], self.flags)
+            x, cache = encdec_mod.prefill(params["trunk"], cfg, x, enc_out,
+                                          cache, self.flags)
+        else:
+            B, S = tokens.shape
+            positions = torch.arange(S, device=tokens.device)[None].expand(
+                B, S)
+            x, cache = trunk_prefill(params["trunk"], cfg, x, positions,
+                                     self.flags, cache)
         logits = self._readout(params, x[:, -1:])[:, 0]
         return logits, cache
 
@@ -74,16 +97,20 @@ class Model:
                     token: torch.Tensor):
         """token [B, 1] int32 -> (logits [B, V], cache updated in place)."""
         x = embed_lookup(params["embed"], token)
-        x, cache = trunk_decode(params["trunk"], self.cfg, x, cache,
-                                self.flags)
+        if self.cfg.encoder_decoder:
+            x, cache = encdec_mod.decode_step(params["trunk"], self.cfg, x,
+                                              cache, self.flags)
+        else:
+            x, cache = trunk_decode(params["trunk"], self.cfg, x, cache,
+                                    self.flags)
         logits = self._readout(params, x)[:, 0]
         return logits, cache
 
     def supports_paged_decode(self) -> bool:
         """Whether :meth:`decode_step_paged` covers this architecture (the
-        paged pool keeps absolute positions, so SWA ring caches and the
-        recurrent state of RWKV6 and HYBRID blocks stay on the dense slot
-        path)."""
+        paged pool keeps absolute positions, so SWA ring caches, the
+        recurrent state of RWKV6 and HYBRID blocks and encoder-decoder
+        caches stay on the dense slot path)."""
         cfg = self.cfg
         return (not cfg.encoder_decoder and cfg.sliding_window is None
                 and cfg.block_type in (DENSE, MOE))

@@ -150,6 +150,25 @@ class EngineConfig:
     trace_capacity: int = DEFAULT_RING_CAPACITY
 
 
+def check_servable(cfg) -> None:
+    """Raise ``ValueError`` for a model the engine cannot serve.
+
+    An encoder-decoder (seamless-m4t) prefills from source frame
+    embeddings, ``batch["src_emb"]``, and a request carries only its
+    prompt's tokens.  The reference engine passes the tokens alone
+    (``repro/serve/engine.py:257-258``) and fails on its first step with
+    ``KeyError: 'src_emb'``; the port adds no feature the reference lacks,
+    so it refuses the model when the engine is built."""
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: ServeEngine feeds a "
+            "request's prompt tokens only, and its prefill needs source "
+            "embeddings (batch['src_emb']); the reference engine cannot "
+            "feed src_emb either (its first step raises KeyError: "
+            "'src_emb').  Drive it through Model.prefill and "
+            "Model.decode_step instead")
+
+
 class ServeEngine:
     """``lmb`` is the LMB stack the KV store pages against: an
     :class:`~repro_torch.core.client.LMBSystem` session (the client API) or a
@@ -161,6 +180,7 @@ class ServeEngine:
                  qos: Optional[AdmissionController] = None,
                  clock: Optional[Callable[[], float]] = None,
                  device="cuda"):
+        check_servable(model.cfg)
         host = lmb.host() if isinstance(lmb, LMBSystem) else lmb
         self.device = resolve_device(device)
         if model.device != self.device:

@@ -7,8 +7,9 @@ of all layers' K+V at once) and stored as LinkedBuffer logical pages:
   * preempted / waiting requests' KV parks in the LMB pool (the paper's
     "exchange time for space"): admission capacity is the POOL size, not
     HBM;
-  * prefix sharing = LinkedBuffer.share (zero-copy, copy-on-write) — the
-    paper's shared-buffer SSD→accelerator scenario;
+  * prefix sharing = LinkedBuffer.share (zero-copy; a write to a shared
+    page writes through, see repro_torch.core.buffer) — the paper's
+    shared-buffer SSD→accelerator scenario;
   * swap-in cost is predicted with the tier model so the scheduler can
     decide hide-or-stall (repro_torch.core.tiers.hideable_page_bytes).
 
@@ -118,9 +119,13 @@ class PagedKVStore:
         del self._seqs[sid]
 
     def fork(self, sid: int) -> int:
-        """Zero-copy prefix share: new sequence maps the same pages (COW
-        on write) — the Table-2 ``share`` scenario.  One batched
-        ``share_many`` call for the whole prefix."""
+        """Zero-copy prefix share: new sequence maps the same pages — the
+        Table-2 ``share`` scenario.  One batched ``share_many`` call for
+        the whole prefix.  The fork's first append starts a fresh page
+        when the prefix ends on a page boundary; a partial tail page is
+        shared, and both sequences then write into it (the reference's
+        copy-on-write does not isolate them either: the copy lands under
+        the same logical index)."""
         new = self.new_seq()
         src = self._seqs[sid]
         dst = self._seqs[new]

@@ -156,6 +156,7 @@ def test_paged_plain_reads_strided_pool_views():
     (2, 96, 8, 2, 32),       # GQA 4:1
     (1, 70, 6, 1, 16),       # MQA, S not a multiple of the block
     (1, 64, 12, 2, 128),     # full-width qwen2 heads
+    (8, 32, 16, 16, 64),     # seamless-m4t's decoder prefill (MHA)
 ])
 @pytest.mark.parametrize("window", [None, 24])
 def test_flash_plain_matches_jax(B, S, H, KV, hd, window):
@@ -411,7 +412,7 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
             (2, 100, 4, 1, 16, 24, True), (1, 64, 8, 8, 64, 16, True),
             (1, 100, 4, 2, 32, None, True), (1, 100, 4, 2, 96, 50, True),
             (1, 90, 4, 1, 144, None, True), (1, 100, 4, 1, 256, None, True),
-            (1, 100, 4, 2, 64, None, False)):
+            (1, 100, 4, 2, 64, None, False), (8, 32, 16, 16, 64, None, True)):
         q = torch.randn(B, S, H, hd, generator=g, device=cuda_device)
         k = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)
         v = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)

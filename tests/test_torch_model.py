@@ -214,9 +214,29 @@ def test_dense_configs_match_reference(arch):
 
 
 def test_encoder_decoder_models_are_refused():
-    """Every decoder-only block type runs; encoder-decoder models
-    (seamless-m4t) are not ported and raise rather than run wrong."""
-    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
-                              encoder_decoder=True, num_encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(cfg, device="cpu")
+    """Encoder-decoder models (seamless-m4t, and a qwen2 trunk made one)
+    build and run through ``Model``; only the serving engine refuses them,
+    since a request carries no source embeddings (tests/test_torch_encdec.py
+    holds the model to the reference)."""
+    from repro_torch.core import system_for
+    from repro_torch.serve import EngineConfig, ServeEngine
+    for cfg in (get_config("seamless-m4t-large-v2").reduced(),
+                dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                                    encoder_decoder=True,
+                                    num_encoder_layers=2)):
+        model = build_model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        assert set(params["trunk"]) == {"enc", "dec"}
+        src = torch.randn((1, 9, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1))
+        logits, cache = model.prefill(
+            params, {"tokens": torch.tensor([[3, 1, 4, 1, 5]]),
+                     "src_emb": src}, model.init_cache(1, 16, 9))
+        logits, cache = model.decode_step(params, cache,
+                                          logits.argmax(-1)[:, None])
+        assert logits.shape == (1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all()) and cache["step"] == 6
+        assert not model.supports_paged_decode()
+        with pytest.raises(ValueError, match="encoder-decoder"):
+            ServeEngine(model, params, system_for("dev0"), EngineConfig(),
+                        device="cpu")
