@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. device and build: the card's name and power limit, then ``nvcc``
+  1. device and build: the card's name and power limit, the host's CPU
+     model, cores, RAM and load average, then ``nvcc``
      builds every kernel of the main paths from ``src/repro_torch/kernels/
      csrc`` (one process per source, all started together);
   2. kernels against their plain PyTorch versions on the card, at the
@@ -65,12 +66,28 @@ Phases (any failure raises and the script exits non-zero):
      CPU (plain versions, which the tests hold to the JAX reference) must
      give the same logits, token streams and link bytes; reduced
      seamless-m4t-large-v2 the same prefill logits (within 1e-5) and
-     greedy token streams through ``Model``.
+     greedy token streams through ``Model``;
+  6. training through ``repro_torch.launch.train`` (no kernel: the
+     reference trains with ``use_kernels=False``, and the kernels have no
+     backward).  6a: full-width qwen2-1.5b in bf16, 6 steps of 8 x 256
+     tokens in 2 microbatches, int8 error-feedback compression, its
+     24,702,574,596 B of optimizer state parked in pinned host memory
+     between steps; each step's page-in, forward and backward,
+     compression, AdamW and page-out timed apart, the bytes moved each way
+     (which must equal the state's), the tier of every parked leaf (which
+     must be pinned host), device memory between steps (which must be
+     under the state's size) and at peak, every loss finite.  6b: five
+     reduced configs in f32 trained 5 steps on the card and on the CPU
+     from the same params must give the same losses (1e-5 relative) and
+     params.  6c: a run stopped by the failure injector and resumed from
+     its checkpoint gives the uninterrupted run's losses, and the loss
+     falls over 30 steps.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
 
-The last lines are the ``kernels`` JSON, the card's name and power limit,
+The last lines are the ``kernels`` JSON (each kernel's launches on the
+training path too: none), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --against OTHER_CHECKOUT
@@ -119,6 +136,23 @@ SEAMLESS_RUN = dict(batch=8, src_len=512, prefix=32, steps=32, cache=128)
 DBRX_LAYERS = 8
 #: seamless-m4t-large-v2's parameters (the reference's abstract_params)
 SEAMLESS_PARAMS = 1_369_826_304
+#: qwen2-1.5b's parameters (the reference's abstract_params) and its
+#: optimizer state with the error-feedback residual: four float32 copies
+#: (m, v, master, ef_err) and the int32 step count, 24,702,574,596 B
+QWEN_PARAMS = 1_543_910_912
+QWEN_STATE_BYTES = 16 * QWEN_PARAMS + 4
+#: phase 6a: full-width qwen2-1.5b through the training launcher
+TRAIN_RUN = dict(steps=6, global_batch=8, seq_len=256, grad_accum=2,
+                 compress_grads=True, offload_opt=True)
+TRAIN_STAGES = ("page_in", "fwd_bwd", "compress", "adamw", "page_out")
+#: phase 6b: the reduced configs trained on the card and on the CPU
+TRAIN_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "dbrx-132b", "hymba-1.5b",
+               "seamless-m4t-large-v2")
+#: losses card against CPU (f32), relative; params: every element within
+#: PARAM_TOL but for one in a thousand, each of which Adam may move by up
+#: to 2 * lr a step where a last-bit difference flips a tiny gradient
+LOSS_TOL = 1e-5
+PARAM_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -127,6 +161,34 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line() -> str:
+    """The host's CPU model, cores, total RAM and load average: what a
+    reader of host-bound times and PCIe rates needs beside them."""
+    import os
+    import platform
+    model, mem = platform.processor() or platform.machine(), 0
+    try:
+        info = {}
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, val = line.partition(":")
+                info.setdefault(key.strip().lower(), val.strip())
+        if info.get("model name", "unknown") != "unknown":
+            model = info["model name"]
+        elif "vendor_id" in info:       # no brand string: vendor and ids
+            model = (f"{info['vendor_id']} family "
+                     f"{info.get('cpu family', '?')} model "
+                     f"{info.get('model', '?')}")
+        with open("/proc/meminfo") as f:
+            mem = next(int(l.split()[1]) * 1024 for l in f
+                       if l.startswith("MemTotal"))
+    except OSError:
+        pass
+    load = " ".join(f"{x:.2f}" for x in os.getloadavg())
+    return (f"host {model}, {os.cpu_count()} cores, {mem / 2**30:.1f} GiB "
+            f"RAM, load {load}")
 
 
 def time_ms(fn, iters: int = 30, repeats: int = 5, warmup: int = 3) -> float:
@@ -1069,6 +1131,235 @@ def workload():
     return lens, news, serve_lengths, rng
 
 
+# ----------------------------------------------------------------- phase 6
+def _gbps(nbytes: int, s: float) -> float:
+    return nbytes / s / 1e9 if s > 0 else float("inf")
+
+
+def train_phase(torch, card: str) -> dict:
+    """6a: full-width qwen2-1.5b trained through the launcher, its
+    optimizer state parked in pinned host memory between steps."""
+    import math
+    from repro_torch.core.offload import PINNED_HOST
+    from repro_torch.kernels import cuda_build
+    from repro_torch.launch import train
+
+    left = free_card(torch)
+    if left > 1.0:
+        raise AssertionError(f"{left:.2f} GiB of earlier phases still on "
+                             "the card")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t = time.monotonic()
+    out = train.run("qwen2-1.5b", reduced=False, verbose=False,
+                    **TRAIN_RUN)
+    total = time.monotonic() - t
+    launches = cuda_build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state, log = out["state_bytes"], out["step_log"]
+    print(f"phase 6a: qwen2-1.5b full width, bf16, {TRAIN_RUN}; optimizer "
+          f"state {state:,} B (predicted {QWEN_STATE_BYTES:,}), LMB pool "
+          f"{out['pool_gib']} GiB; set-up {total - out['wall_s']:.1f} s "
+          f"(params, pinned slab, first page-out), {len(log)} steps "
+          f"{out['wall_s']:.1f} s on {card}")
+    for rec in log:
+        tm, mv = rec["times"], rec["moved"]
+        stages = ", ".join(f"{k} {tm[k] * 1e3:.1f}" for k in TRAIN_STAGES)
+        print(f"  step {rec['step']}: loss {rec['loss']:.4f}, "
+              f"{rec['s'] * 1e3:.1f} ms ({stages} ms); in "
+              f"{mv['to_device']:,} B at "
+              f"{_gbps(mv['to_device'], tm['page_in']):.1f} GB/s, out "
+              f"{mv['to_host']:,} B at "
+              f"{_gbps(mv['to_host'], tm['page_out']):.1f} GB/s; parked "
+              f"{'/'.join(rec['parked_tiers'])}, device "
+              f"{rec['device_bytes'] / 2**30:.2f} GiB")
+    print(f"  peak device memory {peak:.2f} GiB; kernel launches "
+          f"{launches or 'none'} (the training path runs the plain "
+          f"versions, as the reference's)")
+    if state != QWEN_STATE_BYTES:
+        raise AssertionError(f"state {state} B != {QWEN_STATE_BYTES}")
+    for rec in log:
+        if rec["moved"] != {"to_device": state, "to_host": state}:
+            raise AssertionError(f"step {rec['step']} moved {rec['moved']}")
+        if rec["parked_tiers"] != [PINNED_HOST]:
+            raise AssertionError(f"step {rec['step']}: state parked in "
+                                 f"{rec['parked_tiers']}")
+        if not rec["device_bytes"] < state:
+            raise AssertionError(f"step {rec['step']}: "
+                                 f"{rec['device_bytes']} B on the card "
+                                 "between steps")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"losses {out['losses']}")
+    if launches:
+        raise AssertionError(f"training launched kernels {launches}")
+    steady = log[1:] or log
+    med = lambda xs: sorted(xs)[len(xs) // 2]
+    result = {
+        "losses": out["losses"], "state_bytes": state,
+        "step_ms": med([r["s"] * 1e3 for r in steady]),
+        "stage_ms": {k: med([r["times"][k] * 1e3 for r in steady])
+                     for k in TRAIN_STAGES},
+        "in_gbps": med([_gbps(state, r["times"]["page_in"])
+                        for r in steady]),
+        "out_gbps": med([_gbps(state, r["times"]["page_out"])
+                         for r in steady]),
+        "peak_gib": peak,
+        "parked_gib": max(r["device_bytes"] for r in log) / 2**30,
+        "setup_s": total - out["wall_s"], "launches": launches}
+    del out
+    free_card(torch)
+    return result
+
+
+def _param_gap(a, b, lr: float, steps: int) -> float:
+    """The largest element gap between two param trees, held to
+    PARAM_TOL but for one element in a thousand (each within Adam's
+    2 * lr a step)."""
+    import torch
+    d = torch.cat([(x.float().cpu() - y.float().cpu()).abs().reshape(-1)
+                   for x, y in zip(_leaves(a), _leaves(b))])
+    worst, past = float(d.max()), int((d > PARAM_TOL).sum())
+    if worst > 2 * lr * steps or past > 1e-3 * d.numel():
+        raise AssertionError(f"params differ by up to {worst:.3e} ({past} "
+                             f"of {d.numel()} past {PARAM_TOL})")
+    return worst
+
+
+def train_reference_phase(torch) -> None:
+    """6b: each reduced config in f32 trained 5 steps on the card and on
+    the CPU (offload on, grad_accum 2, compression for qwen2) from the
+    same params: the same losses and final params."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+
+    print(f"phase 6b: reduced f32 training, card against CPU, 5 steps "
+          f"(losses within {LOSS_TOL:g} relative, params within "
+          f"{PARAM_TOL:g})")
+    for arch in TRAIN_ARCHS:
+        kw = dict(steps=5, global_batch=4, seq_len=32, grad_accum=2,
+                  compress_grads=arch == "qwen2-1.5b", offload_opt=True,
+                  verbose=False)
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, Flags(remat=False), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        cpu = train.run(arch, device="cpu", init_params=params, **kw)
+        gpu = train.run(arch, device="cuda",
+                        init_params=_to(params, "cuda"), **kw)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["losses"],
+                                                      cpu["losses"]))
+        gap = _param_gap(gpu["params"], cpu["params"], 1e-3, 5)
+        print(f"  {arch}: losses {[round(x, 5) for x in gpu['losses']]}, "
+              f"max rel err {rel:.3e}; params max abs err {gap:.3e}")
+        if not rel <= LOSS_TOL:
+            raise AssertionError(f"{arch}: losses {gpu['losses']} against "
+                                 f"{cpu['losses']}")
+
+
+def train_profile_phase(torch) -> dict:
+    """6d: where a full-width training step's compute goes.  The
+    launcher's train step on qwen2-1.5b with its state on the card (no
+    paging: the compute part of a 6a step), two steps to warm up, one
+    timed, one under ``torch.profiler``: the device's busy time (kernels,
+    copies, fills) against the timed step's wall gives the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import (StepClock, make_train_step,
+                                        opt_state_init)
+
+    cfg = get_config("qwen2-1.5b")
+    S, Bg = TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"]
+    model = build_model(cfg, Flags(remat=False, attn_chunk=S))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    opt = opt_state_init(params, True)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                              total_steps=6),
+                           TRAIN_RUN["grad_accum"], True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, S, Bg))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch)
+    clock = StepClock("cuda")
+    t = time.perf_counter()
+    params, opt, _ = step(params, opt, batch, clock)
+    wall = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_op = {}
+    for e in dev:
+        by_op[e.name] = by_op.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
+    stages = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in clock.times.items())
+    print(f"phase 6d: one qwen2-1.5b train step, state on the card: wall "
+          f"{wall:.1f} ms ({stages} ms); device busy {busy:.1f} ms in "
+          f"{len(dev)} device operations (profiled step), idle share "
+          f"{(1 - busy / wall) if dev else float('nan'):.3f}")
+    for name, ms in top:
+        print(f"  {ms:8.2f} ms  {name[:100]}")
+    if not dev:
+        print("  the profiler recorded no device time: not measured")
+    result = {"wall_ms": wall, "busy_ms": busy, "ops": len(dev),
+              "stage_ms": {k: v * 1e3 for k, v in clock.times.items()}}
+    del params, opt, step, prof
+    free_card(torch)
+    return result
+
+
+def resume_phase(torch) -> None:
+    """6c: a run stopped by the failure injector at step 12 and resumed
+    from its step-10 checkpoint gives the uninterrupted run's losses and
+    params (reduced qwen2-1.5b on the card, offload and compression on);
+    and the loss falls over 30 steps."""
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import latest_step
+
+    kw = dict(steps=20, global_batch=4, seq_len=32, ckpt_every=10,
+              verbose=False, device="cuda", offload_opt=True,
+              compress_grads=True)
+    ref = train.run("qwen2-1.5b", **kw)
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        try:
+            train.run("qwen2-1.5b", ckpt_dir=str(d), fail_at={12}, **kw)
+        except RuntimeError as exc:
+            if "injected failure at step 12" not in str(exc):
+                raise
+        else:
+            raise AssertionError("the injected failure did not stop the run")
+        if latest_step(str(d)) != 10:
+            raise AssertionError(f"latest checkpoint {latest_step(str(d))}")
+        out = train.run("qwen2-1.5b", ckpt_dir=str(d), **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                  ref["losses"][10:]))
+    gap = _param_gap(out["params"], ref["params"], 1e-3, 10)
+    falls = train.run("qwen2-1.5b", steps=30, global_batch=4, seq_len=64,
+                      device="cuda", verbose=False)
+    print(f"phase 6c: resumed at step 10 after a failure at 12: "
+          f"{out['steps']} steps, losses max rel err {rel:.3e} against the "
+          f"uninterrupted run, params max abs err {gap:.3e}; 30 steps: "
+          f"loss {falls['first_loss']:.4f} -> {falls['final_loss']:.4f}")
+    if out["steps"] != 10 or not rel <= LOSS_TOL:
+        raise AssertionError(f"resumed {out['losses']} against "
+                             f"{ref['losses'][10:]}")
+    if not falls["final_loss"] < falls["first_loss"] - 0.1:
+        raise AssertionError(f"loss did not fall: {falls['losses']}")
+
+
 # ------------------------------------------------------ --against OTHER_DIR
 def time_tree(root: Path) -> int:
     """Build the paged, flash and scan kernels of the checkout at ``root``
@@ -1142,7 +1433,7 @@ def main(argv=None) -> int:
     t_start = time.monotonic()
     card = card_line()
     print(f"phase 1: {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
+          f"{torch.version.cuda}; {host_line()}")
     t = time.monotonic()
     logs = cuda_build.build(KERNEL_SOURCES)
     print(f"  built {', '.join(KERNEL_SOURCES)} in "
@@ -1179,6 +1470,13 @@ def main(argv=None) -> int:
     reference_phase(torch, "mixtral-8x22b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "hymba-1.5b", (5, 13, 20, 9, 17, 70), 128)
     encdec_reference_phase(torch)
+    trained = train_phase(torch, card)
+    profiled = train_profile_phase(torch)
+    train_reference_phase(torch)
+    resume_phase(torch)
+    for k in kernels:
+        k["launches_by_path"]["qwen2-1.5b training"] = \
+            trained["launches"].get(k["name"], 0)
 
     for name, res in served.items():
         print(f"serve {name}: {res['tokens_per_s']:.1f} tokens/s, mean TTFT "
@@ -1191,6 +1489,16 @@ def main(argv=None) -> int:
           f"ms, mean decode step {seamless['mean_step_s'] * 1e3:.2f} ms, "
           f"{seamless['tokens_per_s']:.1f} tokens/s, peak "
           f"{seamless['peak_mem_gib']:.2f} GiB on {card}")
+    stages = ", ".join(f"{k} {v:.1f}" for k, v in
+                       trained["stage_ms"].items())
+    print(f"train qwen2-1.5b: step {trained['step_ms']:.1f} ms ({stages} "
+          f"ms), state {trained['state_bytes']:,} B each way at "
+          f"{trained['in_gbps']:.1f} GB/s in, {trained['out_gbps']:.1f} "
+          f"GB/s out, peak {trained['peak_gib']:.2f} GiB, parked "
+          f"{trained['parked_gib']:.2f} GiB, losses "
+          f"{[round(x, 4) for x in trained['losses']]}; state on the "
+          f"card: step {profiled['wall_ms']:.1f} ms, device busy "
+          f"{profiled['busy_ms']:.1f} ms on {card}")
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,11 +23,19 @@ every read here returns a fresh tensor that does not alias a pool, and
 every write updates the pool **in place** and returns it (the JAX
 "write returns the pool" contract, kept so ``LinkedBuffer``'s bookkeeping
 reads the same).
+
+Whole trees move with :func:`tree_put_tier`, the trainer's host-stage path
+for its optimizer state.  torch has no memory kinds inside a compiled
+step, so :func:`supports_in_jit_offload` is False and the trainer always
+pages the state eagerly between steps.  On CUDA ``pinned_host`` is
+page-locked CPU memory (a :class:`PinnedArena` the trainer fills in place
+every step); on the CPU the tensors stay where they are, as in the
+executor's modelling mode.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -36,6 +44,141 @@ from repro_torch.obs.trace import GLOBAL_TRACER, SpanTracer
 
 DEVICE = "device"
 PINNED_HOST = "pinned_host"
+
+
+def backend_memory_kinds(device="cuda") -> tuple:
+    """The tiers a run on ``device`` can place tensors in."""
+    if resolve_device(device).type == "cuda":
+        return (DEVICE, PINNED_HOST)
+    return (DEVICE,)
+
+
+def supports_in_jit_offload() -> bool:
+    """Whether a compiled step can stream state between tiers itself: not
+    in torch, so tier moves are always eager (the host-stage path)."""
+    return False
+
+
+def tier_of(x: torch.Tensor) -> str:
+    """``pinned_host`` for page-locked host memory, else ``device`` (the
+    card's memory, or any tensor of a CPU run: modelling mode)."""
+    return PINNED_HOST if x.device.type == "cpu" and x.is_pinned() \
+        else DEVICE
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def put_tier(x: torch.Tensor, memory_kind: str,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Move one tensor to a tier; the copy is issued on the current stream
+    and not waited for (:func:`tree_put_tier` waits).
+
+    To ``device``, a pinned host tensor goes to the card and anything else
+    stays.  To ``pinned_host``, a card tensor is copied into ``out`` (a
+    page-locked tensor of its shape and dtype, reused step after step) or
+    into new page-locked memory; a tensor that is not on a card has no
+    pinned tier to go to, and asking for one raises rather than leave the
+    tensor where it is."""
+    if memory_kind == DEVICE:
+        if tier_of(x) != PINNED_HOST:
+            return x
+        return x.to("cuda", non_blocking=True)
+    if memory_kind != PINNED_HOST:
+        raise ValueError(f"unknown memory kind {memory_kind!r}")
+    if tier_of(x) == PINNED_HOST:
+        return x
+    if not x.is_cuda:
+        raise RuntimeError(
+            f"no pinned host tier for a {x.device} tensor: pinned memory is "
+            "the host side of a card's PCIe link (a CPU run keeps its state "
+            "in the device tier)")
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    elif (out.shape != x.shape or out.dtype != x.dtype
+          or tier_of(out) != PINNED_HOST):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} "
+                         f"({tier_of(out)}) cannot take {tuple(x.shape)} "
+                         f"{x.dtype}")
+    out.copy_(x, non_blocking=True)
+    return out
+
+
+def _put_tree(tree: Any, memory_kind: str, out: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _put_tree(v, memory_kind, None if out is None else out[k])
+                for k, v in tree.items()}
+    return put_tier(tree, memory_kind, out)
+
+
+def tree_put_tier(tree: Any, memory_kind: str, out: Any = None) -> Any:
+    """:func:`put_tier` over a dict tree (``out``, when given, a tree of
+    the same structure); returns once every copy has landed, so the host
+    copies may be read and the device ones used at once."""
+    res = _put_tree(tree, memory_kind, out)
+    if any(a is not b for (_, a), (_, b) in zip(_paths(tree), _paths(res))):
+        torch.cuda.synchronize()
+    return res
+
+
+def nbytes_of(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes_of(v) for v in tree.values())
+    return _nbytes(tree)
+
+
+def _paths(tree: Any, prefix: tuple = ()):
+    """(key path, leaf) of a dict tree, in its own order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+class PinnedArena:
+    """Page-locked host memory for a whole tree, allocated and locked once.
+
+    One host slab holds every leaf back to back (each at a 256-byte
+    offset) and is page-locked with ``cudaHostRegister``; :attr:`tree`
+    holds the leaves as views, ready to be ``out`` of
+    :func:`tree_put_tier`.  One slab of exactly the tree's size, because
+    torch's pinned allocator rounds each block up to a power of two (a
+    1.54 GB leaf would hold 2 GiB).  If the memory cannot be locked this
+    raises: the state never stays quietly on the card.
+    :meth:`close` unlocks the slab; its views stay valid host memory."""
+
+    ALIGN = 256
+
+    def __init__(self, template: Any):
+        # (path, byte offset, shape, dtype) per leaf: the template's
+        # tensors themselves are not kept
+        layout, total = [], 0
+        for path, t in _paths(template):
+            layout.append((path, total, t.shape, t.dtype))
+            total += -(-_nbytes(t) // self.ALIGN) * self.ALIGN
+        self.nbytes = total
+        torch.cuda.init()
+        self._slab = torch.empty(max(total, 1), dtype=torch.uint8)
+        err = torch.cuda.cudart().cudaHostRegister(
+            self._slab.data_ptr(), self._slab.numel(), 0)
+        if int(err) != 0:
+            self._slab = None
+            raise RuntimeError(f"cudaHostRegister of {total} B failed "
+                               f"(cudaError {int(err)})")
+        self.tree: dict = {}
+        for path, off, shape, dtype in layout:
+            nb = shape.numel() * dtype.itemsize
+            node = self.tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = self._slab[off:off + nb].view(dtype).view(shape)
+
+    def close(self) -> None:
+        if self._slab is not None:
+            torch.cuda.cudart().cudaHostUnregister(self._slab.data_ptr())
+            self._slab = None
 
 
 class TierExecutor:

@@ -8,11 +8,19 @@ dispatcher on every device (the counterpart of the reference's
 ``paged_attention_decode_traces``: a rising count shows the model went
 through the dispatcher); the kernels' own launch counts live in
 ``cuda_build.LAUNCHES``.
+
+The hand-written kernels have no backward, as the Pallas kernels define no
+VJP: on the card a dispatcher refuses a call that autograd would have to
+differentiate (:func:`refuse_autograd`) instead of dropping the gradient.
+Training runs the plain versions, as the reference's does
+(``Flags(use_kernels=False)``).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -26,11 +34,25 @@ def dispatch_counts() -> Dict[str, int]:
     return dict(_calls)
 
 
+def refuse_autograd(name: str, plain: str, *tensors) -> None:
+    """Raise if grad mode is on and any of ``tensors`` requires grad: the
+    CUDA kernel ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass, so autograd "
+            f"cannot differentiate through it; train with "
+            f"Flags(use_kernels=False), which runs its plain version "
+            f"{plain} (the reference's training path), or call it under "
+            f"torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """[B,S,H,hd] x [B,S,KV,hd] -> [B,S,H,hd]."""
     _calls["flash_attention"] += 1
     if q.is_cuda:
+        refuse_autograd("flash_attention", "flash_attention_plain", q, k, v)
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -42,6 +64,8 @@ def rwkv6_scan(r, k, v, w, u, state, chunk: int = 64):
     is."""
     _calls["rwkv6_scan"] += 1
     if r.is_cuda:
+        refuse_autograd("rwkv6_scan", "rwkv6_scan_plain", r, k, v, w, u,
+                        state)
         return _rw.rwkv6_scan_cuda(r, k, v, w, u, state)
     return _rw.rwkv6_scan_plain(r, k, v, w, u, state, chunk=chunk)
 
@@ -61,6 +85,8 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):
     page pools [P,T,KV,hd] through ``page_table`` [B,MP] int32."""
     _calls["paged_attention_decode"] += 1
     if q.is_cuda:
+        refuse_autograd("paged_attention_decode", "paged_attention_plain",
+                        q, k_pages, v_pages)
         return _pa.paged_attention_cuda(q, k_pages, v_pages, page_table,
                                         lengths)
     return _pa.paged_attention_plain(q, k_pages, v_pages, page_table,

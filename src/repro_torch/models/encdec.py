@@ -7,9 +7,8 @@ layers carry self-attention (cached at decode) and cross-attention over
 the encoder output, whose K/V are computed once at prefill and stored
 [L, B, S_src, KV, hd].  As elsewhere in the port, the decode step updates
 the cache **in place** and returns it; ``step`` is a host integer.
-
-The reference's teacher-forced decoder (``decode_train``, used only by
-``Model.loss``) is not ported: it belongs to the training path.
+Training runs the teacher-forced decoder (:func:`decode_train`), each
+layer under ``_remat`` as in the reference.
 """
 
 from __future__ import annotations
@@ -22,9 +21,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.flags import Flags
 from repro_torch.models.layers import Params, dtype_of, rms_norm
-from repro_torch.models.transformer import (_ffn, init_cache, layer,
-                                            num_layers, stacked_layers_init,
-                                            trunk_train)
+from repro_torch.models.transformer import (_ffn, _remat, init_cache,
+                                            layer, num_layers,
+                                            stacked_layers_init, trunk_train,
+                                            unstack)
 
 
 def encdec_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
@@ -66,6 +66,30 @@ def _dec_tail(p: Params, cfg: ArchConfig, x: torch.Tensor,
     x = x + attn.cross_attn(p["cross"], cfg, xn, enc_k, enc_v, flags=flags)
     y, _ = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
     return x + y
+
+
+def _dec_block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                     positions: torch.Tensor, enc_out: torch.Tensor,
+                     flags: Flags) -> torch.Tensor:
+    """One decoder layer over the whole target: causal self-attention,
+    cross-attention over the encoder output, the FFN."""
+    xn = rms_norm(p["norm1"], x, cfg.norm_eps)
+    x = x + attn.attn_forward(p["attn"], cfg, xn, positions, causal=True,
+                              flags=flags)
+    ek, ev = attn.cross_kv(p["cross"], cfg, enc_out)
+    return _dec_tail(p, cfg, x, ek, ev, flags)
+
+
+def decode_train(layers: Params, cfg: ArchConfig, tgt_emb: torch.Tensor,
+                 enc_out: torch.Tensor, flags: Flags) -> torch.Tensor:
+    """Teacher-forced decoder pass."""
+    B, S, _ = tgt_emb.shape
+    positions = _positions(B, S, tgt_emb.device)
+    body = _remat(_dec_block_train, flags)
+    x = tgt_emb
+    for lp in unstack(layers["dec"]):
+        x = body(lp, cfg, x, positions, enc_out, flags)
+    return x
 
 
 def prefill(layers: Params, cfg: ArchConfig, tgt_emb: torch.Tensor,

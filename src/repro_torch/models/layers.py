@@ -132,3 +132,27 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(dense(p["w_up"], x), approximate="tanh")
     return dense(p["w_down"], h)
+
+
+# --------------------------------------------------- chunked cross-entropy
+def chunked_softmax_xent(logits_fn, x: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = 512, unroll: bool = True
+                         ) -> torch.Tensor:
+    """Mean token cross-entropy without materializing [B, S, V] at once.
+
+    ``logits_fn(x_chunk) -> [B, c, V]``; the sequence axis is processed in
+    chunks of ``chunk`` tokens (``S % chunk == 0``), each chunk's logits in
+    float32, so peak memory is O(B * chunk * V).  ``unroll`` chose between
+    a Python loop and ``lax.scan`` in the reference; the port always loops,
+    so it is accepted and ignored.
+    """
+    B, S, _ = x.shape
+    assert S % chunk == 0, (S, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, chunk):
+        logits = logits_fn(x[:, lo:lo + chunk]).float()        # [B, c, V]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, lo:lo + chunk, None].long())[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (B * S)

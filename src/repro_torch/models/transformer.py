@@ -5,16 +5,18 @@ Layer params are stacked on a leading [L] axis, as in the reference; where
 the reference scans over layers (``scan_layers``), the port runs a Python
 loop over per-layer views, so ``models/scan_utils.py`` has no counterpart.
 Caches and pools are updated **in place**.  The full-sequence trunk
-(:func:`trunk_train`) is the forward pass only: it serves the
-encoder-decoder's encoder (``models/encdec.py``); the reference's
-``_remat`` (activation checkpointing for training) is not ported.
+(:func:`trunk_train`) is training's forward pass and the encoder-decoder's
+encoder; under ``flags.remat`` each layer's body is activation-checkpointed
+(:func:`_remat`, the reference's ``jax.checkpoint`` around its scan body).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import DENSE, HYBRID, MOE, RWKV6, ArchConfig
 from repro_torch.models import attention as attn
@@ -69,8 +71,50 @@ def layer(layers: Params, l: int) -> Params:
             for k, v in layers.items()}
 
 
+def unstack(layers: Params) -> list:
+    """Every layer's params at once, one ``torch.unbind`` per stacked leaf.
+    For training: the backward pass stacks the layers' gradients in one
+    copy, where taking each layer apart (:func:`layer`) would give every
+    layer a zeroed gradient of the whole stacked leaf, then sum them."""
+    per = {k: unstack(v) if isinstance(v, dict) else torch.unbind(v)
+           for k, v in layers.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[l] for k, v in per.items()} for l in range(n)]
+
+
 def num_layers(layers: Params) -> int:
     return layers["norm1"]["scale"].shape[0]
+
+
+#: the ops whose outputs the "dots" policy keeps: matmuls without batch
+#: dims (``dots_with_no_batch_dims_saveable``); ``aten.bmm`` (the experts'
+#: batched products) is recomputed, as a batched dot is in the reference
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, flags: Flags):
+    """``body`` under activation checkpointing when ``flags.remat``: policy
+    ``"nothing"`` recomputes every activation in the backward pass,
+    ``"dots"`` keeps the outputs of the matmuls without batch dims.  Without
+    grad mode there is no backward pass to recompute for, so the body runs
+    as it is (``jax.checkpoint`` changes nothing in a forward pass either)."""
+    if not flags.remat:
+        return body
+    kwargs = {}
+    if flags.remat_policy == "dots":
+        kwargs["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return ckpt.checkpoint(body, *args, use_reentrant=False, **kwargs)
+    return wrapped
 
 
 # -------------------------------------------------------------- block bodies
@@ -118,12 +162,13 @@ def block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
 def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, flags: Flags,
                 causal: bool = True):
-    """Loop over layers for full sequences; returns (x, the layers' summed
-    aux loss as an f32 scalar tensor)."""
+    """Loop over layers for full sequences, each layer under
+    :func:`_remat`; returns (x, the layers' summed aux loss as an f32
+    scalar tensor)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(num_layers(layers)):
-        x, a = block_train(layer(layers, l), cfg, x, positions, flags,
-                           causal)
+    body = _remat(block_train, flags)
+    for lp in unstack(layers):
+        x, a = body(lp, cfg, x, positions, flags, causal)
         aux = aux + a
     return x, aux
 

@@ -1,4 +1,4 @@
-"""Model facade: init / prefill / decode_step / decode_step_paged.
+"""Model facade: init / loss / prefill / decode_step / decode_step_paged.
 
 Port of ``repro.models.zoo`` for every config of the reference: the
 decoder-only block types (DENSE, MOE, HYBRID, RWKV6) and the
@@ -7,7 +7,8 @@ the source frame embeddings ``batch["src_emb"]``).  A ``Model`` owns its
 device: it runs on CUDA by default and raises when no card is present,
 unless built with ``device="cpu"``.  Methods are functions of (params,
 inputs) as in the reference; caches and pools are updated in place and
-also returned.  ``loss`` waits for the training path.
+also returned.  ``loss`` is the training objective: the mean token
+cross-entropy plus ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.
 """
 
 from __future__ import annotations
@@ -21,11 +22,14 @@ from repro_torch.configs.base import DENSE, MOE, ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
-from repro_torch.models.layers import (dtype_of, embed_init, embed_logits,
+from repro_torch.models.layers import (chunked_softmax_xent, dtype_of,
+                                       embed_init, embed_logits,
                                        embed_lookup, rms_norm, rms_norm_init)
 from repro_torch.models.transformer import (init_cache, stacked_layers_init,
                                             trunk_decode, trunk_decode_paged,
-                                            trunk_prefill)
+                                            trunk_prefill, trunk_train)
+
+AUX_LOSS_WEIGHT = 0.01
 
 
 @dataclasses.dataclass
@@ -60,6 +64,31 @@ class Model:
     def _readout(self, params, x: torch.Tensor) -> torch.Tensor:
         xn = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         return embed_logits(params["embed"], xn)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Scalar f32 loss of ``batch["tokens"]`` predicting
+        ``batch["labels"]`` (both [B, S]); an encoder-decoder also reads
+        ``batch["src_emb"]`` [B, S_src, D]."""
+        cfg, flags = self.cfg, self.flags
+        labels = batch["labels"]
+        x = embed_lookup(params["embed"], batch["tokens"])
+        if cfg.encoder_decoder:
+            enc_out = encdec_mod.encode(params["trunk"], cfg,
+                                        batch["src_emb"], flags)
+            x = encdec_mod.decode_train(params["trunk"], cfg, x, enc_out,
+                                        flags)
+            aux = 0.0
+        else:
+            B, S = batch["tokens"].shape
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            x, aux = trunk_train(params["trunk"], cfg, x, positions, flags)
+        xn = rms_norm(params["final_norm"], x, cfg.norm_eps)
+        xent = chunked_softmax_xent(
+            lambda xc: embed_logits(params["embed"], xc), xn, labels,
+            chunk=min(flags.loss_chunk, labels.shape[1]),
+            unroll=flags.unroll_loss)
+        return xent + AUX_LOSS_WEIGHT * aux
 
     # --------------------------------------------------------------- prefill
     def init_cache(self, batch: int, seq_len: int,

@@ -35,6 +35,7 @@ COPIES = [
     "configs/granite_34b.py", "configs/h2o_danube_3_4b.py",
     "configs/command_r_plus_104b.py", "configs/chameleon_34b.py",
     "configs/seamless_m4t_large_v2.py", "configs/base.py",
+    "train/fault.py", "data/pipeline.py", "data/__init__.py",
 ]
 
 
