@@ -82,12 +82,30 @@ Phases (any failure raises and the script exits non-zero):
      params.  6c: a run stopped by the failure injector and resumed from
      its checkpoint gives the uninterrupted run's losses, and the loss
      falls over 30 steps.
+  7. the load sweep through ``repro_torch.serve.loadgen`` (after phase 4d
+     and phase 5 respectively).  7a: full-width qwen2-1.5b in bf16 with
+     the kernels on, two tenants (Poisson and bursty, 16 requests each at
+     7.5 requests/s of virtual time, prompts of 16-256 tokens, 16-32 new
+     tokens) replayed by ``run_sweep`` on a virtual clock with a pinned
+     20 ms round, three times on the same trace: (i) pipelined on one
+     expander, (ii) phased, (iii) pipelined on two expanders with a
+     ``MigrationEngine`` round after every step.  Each run prints its
+     ``SweepReport`` (virtual time, modelled from ``tpu_tiers()``) apart
+     from what the card measured (wall time, round wall time synchronised,
+     tokens/s, peak memory, link bytes, launches; for (iii) the pages and
+     bytes moved and the time inside ``run_once``), and fails unless all
+     32 requests finish, paged launches equal 28 x paged rounds and flash
+     28 x prefills, the buffer's invariants hold, (ii) and (iii) give (i)'s
+     streams, (iii) moves a page and (ii) exposes strictly more link wait.
+     7b: ``serve_sweep``'s own trace on reduced qwen2-1.5b in f32, card
+     against CPU: equal ``SweepReport``s and streams, and on two expanders
+     equal migration reports round by round.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
 
 The last lines are the ``kernels`` JSON (each kernel's launches on the
-training path too: none), the card's name and power limit,
+training path too, none, and on the load sweep's run (i)), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --against OTHER_CHECKOUT
@@ -153,6 +171,20 @@ TRAIN_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "dbrx-132b", "hymba-1.5b",
 #: to 2 * lr a step where a last-bit difference flips a tiny gradient
 LOSS_TOL = 1e-5
 PARAM_TOL = 1e-4
+#: phase 7a: serve_sweep's two tenants (benchmarks/run.py) at phase 3's
+#: lengths; 2 x 7.5 rps is 90 % of the 16.7 rps that 8 slots carry at 24
+#: new tokens a request and a 20 ms round (a modelled rate)
+SWEEP_LOAD = dict(n=16, rate_rps=7.5, prompt_tokens=(16, 256),
+                  max_new_tokens=(16, 32))
+#: phase 3's KV geometry (917,504 B pages, 16 onboard), the round pinned
+SWEEP_ECFG = dict(decode_slots=8, page_tokens=32, max_seq_len=512,
+                  onboard_pages=16, round_time_s=0.02)
+#: phase 7b: serve_sweep's own trace and engine, on reduced qwen2-1.5b
+REDUCED_SWEEP_LOAD = dict(n=12, rate_rps=150.0, prompt_tokens=(12, 28),
+                          max_new_tokens=(4, 8))
+REDUCED_SWEEP_ECFG = dict(decode_slots=4, max_seq_len=64, page_tokens=8,
+                          onboard_pages=6, prefill_bucket=16,
+                          round_time_s=2e-3)
 
 
 def card_line() -> str:
@@ -1360,6 +1392,262 @@ def resume_phase(torch) -> None:
         raise AssertionError(f"loss did not fall: {falls['losses']}")
 
 
+# ----------------------------------------------------------------- phase 7
+def sweep_tenants(serve, n, rate_rps, prompt_tokens, max_new_tokens):
+    """serve_sweep's mix (benchmarks/run.py): a Poisson tenant and a
+    bursty one (bursts of 6 at 10x the mean rate), ``n`` requests each."""
+    return [serve.TenantLoad("steady", rate_rps=rate_rps, n_requests=n,
+                             prompt_tokens=prompt_tokens,
+                             max_new_tokens=max_new_tokens),
+            serve.TenantLoad("bursty", rate_rps=rate_rps, n_requests=n,
+                             process="bursty", burst_size=6,
+                             burst_factor=10.0, prompt_tokens=prompt_tokens,
+                             max_new_tokens=max_new_tokens)]
+
+
+def sweep_run(torch, cfg, flags, params, trace, ecfg, device, *,
+              expanders=1, migrate=False):
+    """Replay ``trace`` through ``run_sweep`` on a fresh engine whose KV
+    pages over ``expanders`` LMB expanders.  ``migrate`` runs one
+    ``MigrationEngine`` round (default policy) after every engine step:
+    ``run_sweep``'s own loop around a wrapped ``step``.  Each step, and
+    each migration round apart, is timed on the host with the device
+    synchronised after it.  The kernels' launch counts are reset just
+    before the run and read just after."""
+    from repro_torch.core import (DeviceSpec, HostSpec, LMBSystem,
+                                  SystemSpec)
+    from repro_torch.core.metrics import GLOBAL_METRICS
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import build_model
+    from repro_torch.qos import MigrationEngine
+    from repro_torch.serve import ServeEngine, VirtualClock, run_sweep
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    system = LMBSystem(SystemSpec(
+        expanders=expanders, pool_gib=8,
+        hosts=(HostSpec("server", page_bytes=4096),),
+        devices=(DeviceSpec("gpu0"),)))
+    clock = VirtualClock()
+    eng = ServeEngine(build_model(cfg, flags, device=device), params, system,
+                      ecfg, device_id="gpu0", clock=clock, device=device)
+    mig = None
+    if migrate:
+        mig = MigrationEngine(system)
+        mig.register(eng.kv.buf)
+    rounds, mig_s, reports, prefills = [], [], [], [0]
+    step, prefill = eng.step, eng._prefill_fn
+
+    def counted_prefill(*args, **kw):
+        prefills[0] += 1
+        return prefill(*args, **kw)
+
+    def timed_step():
+        t = time.monotonic()
+        out = step()
+        sync()
+        rounds.append(time.monotonic() - t)
+        if mig is not None:
+            t = time.monotonic()
+            reports.append(mig.run_once())
+            sync()
+            mig_s.append(time.monotonic() - t)
+        return out
+
+    eng.step, eng._prefill_fn = timed_step, counted_prefill
+    GLOBAL_METRICS.reset()          # the KV store's onboard hits and misses
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    t0 = time.monotonic()
+    report = run_sweep(eng, trace, clock)
+    sync()
+    wall = time.monotonic() - t0
+    launches = cuda_build.launch_counts()
+    eng.kv.buf.check_invariants()
+    reqs = list(eng.requests.values())
+    gen = sum(len(r.out_tokens) for r in reqs)
+    out = {
+        "report": report, "wall_s": wall, "rounds": rounds,
+        "streams": {r.req_id: list(r.out_tokens) for r in reqs},
+        "states": sorted({r.state for r in reqs}),
+        "generated_tokens": gen, "tokens_per_s": gen / wall,
+        "paged_rounds": eng.paged_rounds, "prefills": prefills[0],
+        "launches": launches, "link_bytes": system.fm.op_bytes(),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if device == "cuda" else None),
+        "migration": reports, "migration_s": mig_s,
+        "mig_stats": mig.stats() if mig is not None else None,
+    }
+    system.close()
+    return out
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def print_sweep(label, res, card) -> None:
+    """The SweepReport (virtual time) and what the card measured, apart."""
+    rep = res["report"]
+    tot = dict(rep.totals)
+    print(f"  {label}: virtual (modelled: tpu_tiers() link constants, "
+          f"pinned {SWEEP_ECFG["round_time_s"] * 1e3:g} ms round; not H100 latency):")
+    for line in rep.table().splitlines():
+        print(f"    {line}")
+    print("    totals " + json.dumps(tot))
+    ms = [r * 1e3 for r in res["rounds"]]
+    line = {
+        "wall_s": res["wall_s"], "rounds": len(ms),
+        "round_ms_median": _pct(ms, 50), "round_ms_p99": _pct(ms, 99),
+        "tokens_per_s": res["tokens_per_s"],
+        "generated_tokens": res["generated_tokens"],
+        "peak_mem_gib": res["peak_mem_gib"],
+        "lmb_link_bytes": res["link_bytes"],
+        "paged_attention": res["launches"].get("paged_attention"),
+        "flash_attention": res["launches"].get("flash_attention"),
+        "paged_rounds": res["paged_rounds"], "prefills": res["prefills"]}
+    if res["mig_stats"] is not None:
+        line["migration"] = {
+            "rounds_triggered": sum(r.triggered for r in res["migration"]),
+            "pages_moved": res["mig_stats"]["pages_moved"],
+            "bytes_moved": res["mig_stats"]["bytes_moved"],
+            "run_once_s": sum(res["migration_s"]),
+            # (pages, from, to) of each round that moved pages
+            "moves": [(r.pages_moved, r.src_expander, r.dst_expander)
+                      for r in res["migration"] if r.triggered]}
+    print(f"    measured on {card}: " + json.dumps(line))
+
+
+def sweep_phase(torch, card) -> dict:
+    """Phase 7a: full-width qwen2-1.5b (bf16, random weights from seed 0)
+    through ``build_trace`` and ``run_sweep``: (i) pipelined on one
+    expander, (ii) phased on the same trace, (iii) pipelined on two
+    expanders with hot-page migration after every step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch import serve
+
+    t0 = time.monotonic()
+    left = free_card(torch)
+    if left > 1.0:
+        raise AssertionError(f"{left:.2f} GiB of earlier phases still on "
+                             "the card")
+    cfg = get_config("qwen2-1.5b")
+    flags = Flags(remat=False, use_kernels=True)
+    params = build_model(cfg, flags, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    trace = serve.build_trace(sweep_tenants(serve, **SWEEP_LOAD),
+                              vocab_size=cfg.vocab_size, seed=0)
+    ecfg = serve.EngineConfig(**SWEEP_ECFG)
+    print(f"phase 7a: load sweep, {cfg.name} full width bf16, "
+          f"{len(trace)} requests over "
+          f"{trace[-1].arrival_time_s:.3f} s of virtual time, {SWEEP_LOAD}, "
+          f"{SWEEP_ECFG}")
+    # warm-up: cuBLAS handles, the allocator, both kernels
+    sweep_run(torch, cfg, flags, params, trace[:2], ecfg, "cuda")
+    runs = {
+        "pipelined": sweep_run(torch, cfg, flags, params, trace, ecfg,
+                               "cuda"),
+        "phased": sweep_run(torch, cfg, flags, params, trace,
+                            dataclasses.replace(ecfg, pipeline=False),
+                            "cuda"),
+        "migrating": sweep_run(torch, cfg, flags, params, trace, ecfg,
+                               "cuda", expanders=2, migrate=True),
+    }
+    for name, res in runs.items():
+        print_sweep(name, res, card)
+    check_sweep(runs, cfg, len(trace))
+    del params
+    free_card(torch)
+    print(f"  phase 7a took {time.monotonic() - t0:.1f}s")
+    return runs
+
+
+def check_sweep(runs, cfg, n) -> None:
+    """7a's gates: every request done, launches exact, the phased and the
+    migrating runs' streams equal to the pipelined one's, pages moved, and
+    strictly more exposed link wait phased than pipelined."""
+    for name, res in runs.items():
+        tot = res["report"].totals
+        if res["states"] != ["done"] or tot["done"] != n:
+            raise AssertionError(f"{name}: {tot['done']} of {n} done "
+                                 f"({res['states']})")
+        want = {"paged_attention": cfg.num_layers * res["paged_rounds"],
+                "flash_attention": cfg.num_layers * res["prefills"]}
+        got = {k: res["launches"].get(k, 0) for k in want}
+        if got != want or res["prefills"] != n:
+            raise AssertionError(f"{name}: launches {got}, want {want} "
+                                 f"({res['prefills']} prefills)")
+    base = runs["pipelined"]
+    for name in ("phased", "migrating"):
+        if runs[name]["streams"] != base["streams"]:
+            first = next(r for r in base["streams"]
+                         if runs[name]["streams"][r] != base["streams"][r])
+            raise AssertionError(f"{name}: request {first}'s stream differs "
+                                 "from the pipelined run's")
+    if runs["migrating"]["mig_stats"]["pages_moved"] < 1:
+        raise AssertionError("migration moved no page")
+    wait = {k: runs[k]["report"].totals["exposed_link_wait_s"]
+            for k in ("pipelined", "phased")}
+    if not wait["phased"] > wait["pipelined"]:
+        raise AssertionError(f"exposed link wait not lower pipelined: {wait}")
+    print(f"  7a gates hold: {n} done in each run; launches exact; streams "
+          f"equal across the three runs; exposed link wait "
+          f"{wait['pipelined']:.6g} s pipelined < {wait['phased']:.6g} s "
+          "phased (virtual)")
+
+
+def sweep_reference_phase(torch) -> None:
+    """Phase 7b: serve_sweep's exact trace on reduced qwen2-1.5b (f32), on
+    the card (kernels) and on the CPU (plain versions) from the same
+    params; then the migrating run on two expanders.  The SweepReports,
+    the streams and every round's MigrationReport must be equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch import serve
+
+    t0 = time.monotonic()
+    cfg = get_config("qwen2-1.5b").reduced()
+    flags = Flags(remat=False, use_kernels=True)
+    cpu_params = build_model(cfg, flags, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = {"cpu": cpu_params, "cuda": _to(cpu_params, "cuda")}
+    trace = serve.build_trace(sweep_tenants(serve, **REDUCED_SWEEP_LOAD),
+                              vocab_size=cfg.vocab_size, seed=0)
+    ecfg = serve.EngineConfig(**REDUCED_SWEEP_ECFG)
+    print(f"phase 7b: reduced {cfg.name} f32, serve_sweep's trace "
+          f"({len(trace)} requests), card against CPU")
+    for migrate in (False, True):
+        got = {}
+        for device in ("cpu", "cuda"):
+            res = sweep_run(torch, cfg, flags, params[device], trace, ecfg,
+                            device, expanders=2 if migrate else 1,
+                            migrate=migrate)
+            rep = res["report"]
+            got[device] = (rep.per_tenant, rep.totals, res["streams"],
+                           [(m.pages_moved, m.src_expander, m.dst_expander)
+                            for m in res["migration"]])
+        if got["cuda"] != got["cpu"]:
+            for i, what in enumerate(("per_tenant", "totals", "streams",
+                                      "migration reports")):
+                if got["cuda"][i] != got["cpu"][i]:
+                    raise AssertionError(f"7b: {what} differ, card "
+                                         f"{got['cuda'][i]} CPU "
+                                         f"{got['cpu'][i]}")
+        moved = sum(m[0] for m in got["cpu"][3])
+        print(f"  {'migrating' if migrate else 'pipelined'}: SweepReport, "
+              f"{sum(map(len, got['cpu'][2].values()))} tokens and "
+              f"{len(got['cpu'][3])} migration reports ({moved} pages moved)"
+              f" equal, card and CPU; totals {json.dumps(got['cpu'][1])}")
+    print(f"  phase 7b took {time.monotonic() - t0:.1f}s")
+
+
 # ------------------------------------------------------ --against OTHER_DIR
 def time_tree(root: Path) -> int:
     """Build the paged, flash and scan kernels of the checkout at ``root``
@@ -1451,6 +1739,7 @@ def main(argv=None) -> int:
     served = serve_phases(torch, lens, news, prompts)
     seamless = seamless_phase(torch)
     free_card(torch)
+    swept = sweep_phase(torch, card)
 
     for k in kernels:
         by_path = {name: res["launches"][k["name"]]
@@ -1463,6 +1752,8 @@ def main(argv=None) -> int:
             "rwkv6-7b" if k["name"] in RWKV_KERNELS else "qwen2-1.5b")
         k["path"] = main_path
         k["launches"] = by_path.get(main_path, 0)
+        by_path["qwen2-1.5b load sweep"] = \
+            swept["pipelined"]["launches"].get(k["name"], 0)
         k["launches_by_path"] = by_path
     reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "rwkv6-7b", (5, 13, 20, 9, 17, 70), 128)
@@ -1470,6 +1761,7 @@ def main(argv=None) -> int:
     reference_phase(torch, "mixtral-8x22b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "hymba-1.5b", (5, 13, 20, 9, 17, 70), 128)
     encdec_reference_phase(torch)
+    sweep_reference_phase(torch)
     trained = train_phase(torch, card)
     profiled = train_profile_phase(torch)
     train_reference_phase(torch)
@@ -1484,6 +1776,15 @@ def main(argv=None) -> int:
               f"{res['mean_round_s'] * 1e3:.2f} ms, peak "
               f"{res['peak_mem_gib']:.2f} GiB, link bytes "
               f"{res['lmb_link_bytes']} on {card}")
+    for name, res in swept.items():
+        tot = res["report"].totals
+        ms = [r * 1e3 for r in res["rounds"]]
+        print(f"load sweep qwen2-1.5b {name}: {tot['done']} of "
+              f"{tot['requests']} done in {tot['rounds']} rounds, "
+              f"{res['tokens_per_s']:.1f} tokens/s, round median "
+              f"{_pct(ms, 50):.2f} ms, p99 {_pct(ms, 99):.2f} ms, wall "
+              f"{res['wall_s']:.2f} s on {card}; virtual exposed link wait "
+              f"{tot['exposed_link_wait_s']:.6g} s (modelled)")
     print(f"seamless-m4t-large-v2: encode {seamless['encode_s'] * 1e3:.1f} "
           f"ms, decoder prefill {seamless['decoder_prefill_s'] * 1e3:.1f} "
           f"ms, mean decode step {seamless['mean_step_s'] * 1e3:.2f} ms, "

@@ -107,6 +107,10 @@ class EngineConfig:
     max_seq_len: int = 256
     page_tokens: int = 32
     onboard_pages: int = 32            # HBM-tier KV budget
+    #: accepted for the reference's keywords and has no effect in either
+    #: package: the reference pads a prompt to this bucket, then prefills
+    #: ``toks[:, :len(prompt)]``, so every prompt runs at its own length
+    prefill_bucket: int = 64
     #: feed each active sequence's next-decode page list to the KV
     #: store's prefetcher every batch round (exact future knowledge,
     #: moved as coalesced bursts).  Pure performance knob: tokens are

@@ -1,6 +1,7 @@
 """Package rules of the port: its copies stay copies, it imports neither
 jax nor ``repro``, and its entry points refuse to run on a missing card."""
 
+import ast
 import os
 import pathlib
 import re
@@ -36,7 +37,14 @@ COPIES = [
     "configs/command_r_plus_104b.py", "configs/chameleon_34b.py",
     "configs/seamless_m4t_large_v2.py", "configs/base.py",
     "train/fault.py", "data/pipeline.py", "data/__init__.py",
+    "sim/workload.py", "qos/contention.py", "qos/migration.py",
+    "qos/__init__.py", "sim/ssd.py", "rack/des.py", "sim/engine.py",
+    "sim/__init__.py", "rack/scenarios.py",
 ]
+
+#: copies whose module docstring was edited (it named the change that
+#: landed the code); everything below the docstring is the original's
+DOCSTRING_EDITED = ["serve/loadgen.py", "rack/__init__.py"]
 
 
 def _rewritten(rel):
@@ -47,6 +55,27 @@ def _rewritten(rel):
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_equals_the_original(rel):
     assert (PORT / rel).read_text() == _rewritten(rel)
+
+
+def _without_docstring(text):
+    tree = ast.parse(text)
+    assert isinstance(tree.body[0].value, ast.Constant)
+    return ast.dump(ast.Module(body=tree.body[1:], type_ignores=[])), \
+        text.split('"""', 2)[2]
+
+
+@pytest.mark.parametrize("rel", DOCSTRING_EDITED)
+def test_copied_module_differs_only_in_its_docstring(rel):
+    port, orig = (PORT / rel).read_text(), _rewritten(rel)
+    assert port != orig
+    assert _without_docstring(port) == _without_docstring(orig)
+
+
+def test_serve_exports_the_reference_names_and_decode_view():
+    import repro.serve
+    import repro_torch.serve
+    assert set(repro_torch.serve.__all__) == \
+        set(repro.serve.__all__) | {"DecodeView"}
 
 
 def test_config_base_differs_only_in_load_all():
