@@ -100,6 +100,24 @@ Phases (any failure raises and the script exits non-zero):
      7b: ``serve_sweep``'s own trace on reduced qwen2-1.5b in f32, card
      against CPU: equal ``SweepReport``s and streams, and on two expanders
      equal migration reports round by round.
+  8. the dry run (``repro_torch.launch.dryrun``; no kernel: it traces the
+     reference's XLA path, ``use_kernels=False``).  8a, host only: the
+     port's ``run_cell`` for qwen2-1.5b x decode_32k on the production
+     meshes, ``single`` (256 fake ranks) and ``multi`` (512), each
+     roofline row with the H100's datasheet figures, the argument,
+     output and peak bytes per device and the trace time; ``single``'s
+     argument bytes must be the reference's 952,277,028.  8b, one card,
+     mesh (1, 1), full-width qwen2-1.5b in bf16 from seed 0: a decode step
+     at B = 16 against a 4,096-token cache and a train step of 8 x 256
+     tokens with AdamW's state on the card, each predicted by the dry run
+     (DTensors on a fake one-rank mesh, the code path of the production
+     meshes, which on one rank issues no collective) and then run on the
+     card through the CUDA model's own ``decode_step`` and
+     ``make_train_step`` (after one warm-up step): the predicted
+     argument bytes must equal the real tensors' ``nbytes`` and the
+     predicted peak must lie within 10 % (decode) and 20 % (train) of the
+     rise in ``torch.cuda.max_memory_allocated()`` over the step; each
+     prints the measured step time beside the roofline's and their ratio.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
@@ -179,6 +197,14 @@ SWEEP_LOAD = dict(n=16, rate_rps=7.5, prompt_tokens=(16, 256),
 #: phase 3's KV geometry (917,504 B pages, 16 onboard), the round pinned
 SWEEP_ECFG = dict(decode_slots=8, page_tokens=32, max_seq_len=512,
                   onboard_pages=16, round_time_s=0.02)
+#: phase 8a: the reference's argument bytes per device for qwen2-1.5b x
+#: decode_32k x single, summed from its own specs' shard shapes (params
+#: 482,449,408, cache 469,827,588 with its int32 step, token 32)
+DRYRUN_ARG_BYTES = 952_277_028
+#: phase 8b, one card, mesh (1, 1): (kind, seq_len, batch, bound on the
+#: predicted peak against the real rise): a decode step at B = 16 against
+#: a 4,096-token cache, a train step of 8 x 256 tokens, AdamW on the card
+DRYRUN_CELLS = (("decode", 4096, 16, 0.10), ("train", 256, 8, 0.20))
 #: phase 7b: serve_sweep's own trace and engine, on reduced qwen2-1.5b
 REDUCED_SWEEP_LOAD = dict(n=12, rate_rps=150.0, prompt_tokens=(12, 28),
                           max_new_tokens=(4, 8))
@@ -1649,6 +1675,138 @@ def sweep_reference_phase(torch) -> None:
 
 
 # ------------------------------------------------------ --against OTHER_DIR
+# ----------------------------------------------------------------- phase 8
+def dryrun_real_args(torch, model, shape):
+    """The arguments of ``build_cell``'s step as real tensors on the card:
+    params drawn from seed 0, AdamW's state or the decode cache by the
+    port's own init, the batch drawn from the vocabulary."""
+    from repro_torch.train.loop import opt_state_init
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    B, S = shape.global_batch, shape.seq_len
+    ids = lambda *shp: torch.randint(0, model.cfg.vocab_size, shp,
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+    if shape.kind == "train":
+        return params, opt_state_init(params), {"tokens": ids(B, S),
+                                                "labels": ids(B, S)}
+    cache = model.init_cache(B, S)
+    cache["step"] = torch.zeros((), dtype=torch.int32, device="cuda")
+    return params, cache, ids(B, 1)
+
+
+def dryrun_phase(torch, card: str) -> dict:
+    """8a: the port's dry run of qwen2-1.5b x decode_32k on the production
+    meshes (host only).  8b: the dry run's prediction for two full-width
+    qwen2-1.5b steps on a (1, 1) mesh against the same steps run on the
+    card."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import make_train_step
+
+    t0 = time.monotonic()
+    for mesh_kind in ("single", "multi"):
+        rec = dryrun.run_cell("qwen2-1.5b", "decode_32k", mesh_kind,
+                              verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"8a {mesh_kind}: {rec.get('error')}\n"
+                                 f"{rec.get('trace')}")
+        m, r = rec["memory"], rec["roofline"]
+        print(f"phase 8a: dry run qwen2-1.5b x decode_32k x {mesh_kind} "
+              f"({r['chips']} fake ranks, {r['chip']}): compute "
+              f"{r['compute_s'] * 1e3:.4f} ms, memory "
+              f"{r['memory_s'] * 1e3:.4f} ms, collective "
+              f"{r['collective_s'] * 1e3:.4f} ms, dominant {r['dominant']},"
+              f" roofline fraction {r['roofline_fraction']:.6f}, model "
+              f"flops {r['model_flops']:.6g}; per device: args "
+              f"{m['argument_size_in_bytes']:,} B, out "
+              f"{m['output_size_in_bytes']:,} B, peak "
+              f"{m['peak_size_in_bytes']:,} B; traced in "
+              f"{rec['trace_s']:.1f} s (host), rewrites "
+              f"{rec['rewrites']}")
+        if mesh_kind == "single" and \
+                m["argument_size_in_bytes"] != DRYRUN_ARG_BYTES:
+            raise AssertionError(f"argument bytes "
+                                 f"{m['argument_size_in_bytes']:,} != "
+                                 f"{DRYRUN_ARG_BYTES:,}")
+    t_8a = time.monotonic() - t0
+
+    cfg = get_config("qwen2-1.5b")
+    mesh = fake_mesh((1, 1), ("data", "model"))
+    model = build_model(cfg, dryrun.DRY_FLAGS, device="cuda")
+    cells = {}
+    for kind, seq, batch, tol in DRYRUN_CELLS:
+        shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+        t = time.monotonic()
+        pred = dryrun.measure_cell(cfg, shape, mesh)
+        t_pred = time.monotonic() - t
+        terms = dryrun.roofline_of(pred, cfg, shape, 1)
+        left = free_card(torch)
+        if left > 1.0:
+            raise AssertionError(f"{left:.2f} GiB still on the card")
+        fn = make_train_step(model, AdamWConfig()) if kind == "train" \
+            else model.decode_step
+        args = dryrun_real_args(torch, model, shape)
+        arg_bytes = dryrun.local_nbytes(args)
+        out = fn(*args)                     # warm-up: cuBLAS workspaces
+        del out
+        times, rise = [], 0
+        for _ in range(3):
+            if kind == "decode":
+                args[1]["step"] = torch.zeros((), dtype=torch.int32,
+                                              device="cuda")
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            rise = max(rise, torch.cuda.max_memory_allocated() - base)
+            del out
+        del args
+        step_s = sorted(times)[1]
+        mem = pred["memory"]
+        err = mem["peak_size_in_bytes"] / rise - 1.0
+        print(f"phase 8b: qwen2-1.5b full width bf16 {kind} {batch} x "
+              f"{seq}, mesh (1, 1): predicted args "
+              f"{mem['argument_size_in_bytes']:,} B, real {arg_bytes:,} B;"
+              f" predicted peak {mem['peak_size_in_bytes']:,} B, "
+              f"max_memory_allocated rose {rise:,} B ({err:+.2%}, bound "
+              f"{tol:.0%}); step {step_s * 1e3:.2f} ms measured, roofline "
+              f"{terms.step_time_s * 1e3:.2f} ms ({terms.dominant}-bound, "
+              f"{terms.chip.name}), measured/roofline "
+              f"{step_s / terms.step_time_s:.2f}; predicted "
+              f"{pred['flops']:.6g} flops, {pred['bytes']:.6g} B moved "
+              f"(eager, unfused), {len(pred['collectives'])} collectives, "
+              f"rewrites {pred['rewrites']}; traced as DTensors in "
+              f"{t_pred:.1f} s (host) on {card}")
+        if pred["collectives"]:
+            raise AssertionError(f"{kind}: one rank issued "
+                                 f"{pred['collectives']}")
+        if mem["argument_size_in_bytes"] != arg_bytes:
+            raise AssertionError(f"{kind}: predicted args "
+                                 f"{mem['argument_size_in_bytes']} != real "
+                                 f"{arg_bytes}")
+        if abs(err) > tol:
+            raise AssertionError(f"{kind}: predicted peak "
+                                 f"{mem['peak_size_in_bytes']} B, real "
+                                 f"rise {rise} B")
+        cells[kind] = {"pred": pred, "rise": rise, "step_s": step_s,
+                       "roofline_s": terms.step_time_s}
+    del model
+    free_card(torch)
+    dist.destroy_process_group()
+    print(f"  phase 8 took {time.monotonic() - t0:.1f}s (8a "
+          f"{t_8a:.1f}s)")
+    return cells
+
+
 def time_tree(root: Path) -> int:
     """Build the paged, flash and scan kernels of the checkout at ``root``
     and print their wrappers' times at the main path's shapes as one JSON
@@ -1766,6 +1924,7 @@ def main(argv=None) -> int:
     profiled = train_profile_phase(torch)
     train_reference_phase(torch)
     resume_phase(torch)
+    dryrun_phase(torch, card)
     for k in kernels:
         k["launches_by_path"]["qwen2-1.5b training"] = \
             trained["launches"].get(k["name"], 0)

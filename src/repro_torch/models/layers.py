@@ -7,8 +7,8 @@ Conventions, as in the reference:
   * every init function takes an explicit ``torch.Generator`` and a device
     and returns the param subtree.
 
-Sharding constraints (``constrain``) are no-ops without a mesh in the
-reference, so the port drops them.
+Sharding constraints (``constrain``) sit where the reference has them;
+without an active mesh, or on a plain tensor, they return their input.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.constraints import constrain
 
 Params = Dict[str, Any]
 
@@ -128,9 +130,11 @@ def mlp_init(gen: torch.Generator, cfg, n: Optional[int] = None) -> Params:
 def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         g = F.silu(dense(p["w_gate"], x))
-        return dense(p["w_down"], g * dense(p["w_up"], x))
+        h = constrain(g * dense(p["w_up"], x), "ffn_hidden")
+        return dense(p["w_down"], h)
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(dense(p["w_up"], x), approximate="tanh")
+    h = constrain(F.gelu(dense(p["w_up"], x), approximate="tanh"),
+                  "ffn_hidden")
     return dense(p["w_down"], h)
 
 

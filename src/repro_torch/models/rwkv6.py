@@ -25,6 +25,7 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
 from repro_torch.models.layers import (Params, dense, dense_init, dtype_of,
                                        rms_norm, rms_norm_init)
+from repro_torch.sharding.constraints import constrain
 
 
 def rwkv_init(gen: torch.Generator, cfg, n: Optional[int] = None) -> Params:
@@ -162,13 +163,12 @@ def time_mix(p: Params, cfg, x: torch.Tensor, prev_x: torch.Tensor,
 
 
 def channel_mix(p: Params, cfg, x: torch.Tensor, prev_x: torch.Tensor):
-    """RWKV channel-mix (squared-relu FFN with receptance gate).  The
-    reference's ``constrain(..., "ffn_hidden")`` is a sharding hint; the
-    port has no sharding yet, so it is dropped."""
+    """RWKV channel-mix (squared-relu FFN with receptance gate)."""
     xs = _token_shift(x, prev_x)
     xk = _mix(x, xs, p["mu_ck"]).to(x.dtype)
     xr = _mix(x, xs, p["mu_cr"]).to(x.dtype)
-    h = torch.square(torch.relu(dense(p["cm_k"], xk)))
+    h = constrain(torch.square(torch.relu(dense(p["cm_k"], xk))),
+                  "ffn_hidden")
     kv = dense(p["cm_v"], h)
     return torch.sigmoid(dense(p["cm_r"], xr)) * kv, x[:, -1:]
 

@@ -26,6 +26,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.flags import Flags
 from repro_torch.models.layers import (Params, dtype_of, mlp_apply,
                                        mlp_init, rms_norm, rms_norm_init)
+from repro_torch.sharding.constraints import constrain
 
 #: the recurrent state an RWKV6 layer keeps in the decode cache
 RWKV_KEYS = ("tmix_prev", "wkv", "cmix_prev")
@@ -139,6 +140,7 @@ def block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
     """Full-sequence block (the encoder; training's forward).  Returns
     (x, aux loss)."""
     if cfg.block_type == RWKV6:
+        x = constrain(x, "residual")
         prev, st, _ = rwkv_mod.rwkv_state_init(cfg, x.shape[0], x.device,
                                                x.dtype)
         h, _, _ = rwkv_mod.time_mix(p["rwkv"], cfg, rms_norm(
@@ -146,7 +148,8 @@ def block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
         x = x + h
         h, _ = rwkv_mod.channel_mix(p["rwkv"], cfg, rms_norm(
             p["norm2"], x, cfg.norm_eps), prev)
-        return x + h, 0.0
+        return constrain(x + h, "residual"), 0.0
+    x = constrain(x, "residual")
     xn = rms_norm(p["norm1"], x, cfg.norm_eps)
     a = attn.attn_forward(p["attn"], cfg, xn, positions, causal=causal,
                           flags=flags)
@@ -156,7 +159,7 @@ def block_train(p: Params, cfg: ArchConfig, x: torch.Tensor,
         a = _fuse(p, cfg, a, s)
     x = x + a
     y, aux = _ffn(p, cfg, rms_norm(p["norm2"], x, cfg.norm_eps), flags)
-    return x + y, aux
+    return constrain(x + y, "residual"), aux
 
 
 def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -217,13 +220,18 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
 def _ring_fill(cache_arr: torch.Tensor, vals: torch.Tensor, C: int) -> None:
     """Write the last C of S computed entries into a ring cache in place.
 
-    cache_arr [B, C, ...]; vals [B, S, ...]."""
+    cache_arr [B, C, ...]; vals [B, S, ...].  Token t lands in slot
+    t % C, so the last C tokens fill two contiguous runs of slots; slices,
+    not an index tensor, so a cache sharded over its slots takes the write
+    shard by shard."""
     S = vals.shape[1]
     if C >= S:
         cache_arr[:, :S] = vals
         return
-    idx = torch.arange(S - C, S, device=vals.device) % C
-    cache_arr[:, idx] = vals[:, S - C:]
+    r = (S - C) % C                     # the slot of token S - C
+    cache_arr[:, r:] = vals[:, S - C:S - r]
+    if r:
+        cache_arr[:, :r] = vals[:, S - r:]
 
 
 # ------------------------------------------------------------ prefill/decode

@@ -1,4 +1,5 @@
-"""Model facade: init / loss / prefill / decode_step / decode_step_paged.
+"""Model facade: init / loss / prefill / decode_step / decode_step_paged /
+input_specs.
 
 Port of ``repro.models.zoo`` for every config of the reference: the
 decoder-only block types (DENSE, MOE, HYBRID, RWKV6) and the
@@ -9,6 +10,9 @@ unless built with ``device="cpu"``.  Methods are functions of (params,
 inputs) as in the reference; caches and pools are updated in place and
 also returned.  ``loss`` is the training objective: the mean token
 cross-entropy plus ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.
+``abstract_params``, ``input_specs`` and ``cache_specs`` give the dry run
+(``launch/dryrun.py``) every input of a step as ``meta`` tensors: shapes
+and dtypes, no storage.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ArchConfig
+from repro_torch.configs.base import DENSE, MOE, SHAPES, ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
@@ -61,6 +65,16 @@ class Model:
                                                   cfg.num_layers)
         return params
 
+    def abstract_params(self) -> Dict[str, Any]:
+        """The params' shapes and dtypes as ``meta`` tensors, without
+        allocating: :meth:`init` runs under ``FakeTensorMode`` with a CPU
+        generator, whatever the model's device."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        cpu = dataclasses.replace(self, device="cpu")
+        with FakeTensorMode():
+            fake = cpu.init(torch.Generator())
+        return _as_meta(fake)
+
     def _readout(self, params, x: torch.Tensor) -> torch.Tensor:
         xn = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
         return embed_logits(params["embed"], xn)
@@ -92,12 +106,14 @@ class Model:
 
     # --------------------------------------------------------------- prefill
     def init_cache(self, batch: int, seq_len: int,
-                   src_len: Optional[int] = None) -> Dict[str, Any]:
+                   src_len: Optional[int] = None,
+                   device=None) -> Dict[str, Any]:
+        """Zeroed decode cache on ``device`` (the model's by default)."""
+        device = self.device if device is None else device
         if self.cfg.encoder_decoder:
             return encdec_mod.init_encdec_cache(self.cfg, batch, seq_len,
-                                                src_len or seq_len,
-                                                self.device)
-        return init_cache(self.cfg, batch, seq_len, self.device)
+                                                src_len or seq_len, device)
+        return init_cache(self.cfg, batch, seq_len, device)
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache: Dict[str, Any]):
@@ -164,6 +180,48 @@ class Model:
                                page_table, lengths, self.flags)
         logits = self._readout(params, x)[:, 0]
         return logits, pool
+
+
+    # ------------------------------------------------------------- dry specs
+    def input_specs(self, shape) -> Dict[str, torch.Tensor]:
+        """``meta`` tensors for the batch the step of ``shape`` (a
+        ``ShapeConfig`` or its name) takes."""
+        if isinstance(shape, str):
+            shape = SHAPES[shape]
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        tok = _meta((B, S), torch.int32)
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": tok}
+            if shape.kind == "train":
+                specs["labels"] = tok
+            if cfg.encoder_decoder:
+                specs["src_emb"] = _meta((B, S, cfg.d_model), dtype_of(cfg))
+            return specs
+        if shape.kind == "decode":
+            return {"token": _meta((B, 1), torch.int32)}
+        raise ValueError(shape.kind)
+
+    def cache_specs(self, shape) -> Dict[str, Any]:
+        """The decode cache of ``shape`` as ``meta`` tensors.  ``step`` is a
+        0-d int32, as in the reference's cache; the port's own caches keep
+        it as a host integer, and ``decode_step`` takes either."""
+        if isinstance(shape, str):
+            shape = SHAPES[shape]
+        B, S = shape.global_batch, shape.seq_len
+        cache = self.init_cache(B, S, device="meta")
+        cache["step"] = _meta((), torch.int32)
+        return cache
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _as_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _as_meta(v) for k, v in tree.items()}
+    return _meta(tree.shape, tree.dtype)
 
 
 def build_model(cfg: ArchConfig, flags: Flags = DEFAULT_FLAGS,

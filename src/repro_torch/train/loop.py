@@ -12,8 +12,8 @@ into float32 zeros and divided, as the reference's are.  The step runs
 eagerly, so where the reference streams the optimizer state between tiers
 inside a compiled step, the port always takes the reference's host-stage
 path: the launcher pages the state in before the step and out after it.
-``abstract_train_state`` (shapes without allocation) belongs to the
-sharding work and is not ported yet.
+``abstract_train_state`` gives the params and the optimizer state as
+``meta`` tensors (shapes and dtypes, no storage) for the dry run.
 """
 
 from __future__ import annotations
@@ -145,3 +145,9 @@ def opt_state_init(params, compress_grads: bool = False):
     if compress_grads:
         st["ef_err"] = ef_state_init(params)
     return st
+
+
+def abstract_train_state(model: Model, compress_grads: bool = False):
+    """(params, opt_state) as ``meta`` tensors, without allocation."""
+    params = model.abstract_params()
+    return params, opt_state_init(params, compress_grads)

@@ -111,6 +111,30 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     assert bad.strip() == "[]"
 
 
+def test_sharding_dry_run_and_roofline_load_no_jax_and_no_group():
+    """The dry run's modules, imported alone: no jax, no ``repro``, no
+    process group and no XLA flags (the reference's dry run sets them
+    when imported)."""
+    code = (
+        "import os, sys\n"
+        "import repro_torch.sharding, repro_torch.sharding.constraints\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.roofline, repro_torch.roofline.chips\n"
+        "import torch.distributed as dist\n"
+        "assert 'jax' not in sys.modules\n"
+        "assert not any(n == 'repro' or n.startswith(('repro.', 'jax'))\n"
+        "               for n in sys.modules)\n"
+        "assert not dist.is_initialized()\n"
+        "assert 'XLA_FLAGS' not in os.environ\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(env, PYTHONPATH=str(SRC)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_static_scan_finds_no_jax_or_repro_import():
     """Top-level and function-level imports alike."""
     pat = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
