@@ -34,10 +34,17 @@ Phases (any failure raises and the script exits non-zero):
      its plain version's time, its bound and, for flash,
      ``scaled_dot_product_attention`` timed both ways as a yardstick the
      port never calls.  Paged and flash are also checked at dbrx-132b's
-     shapes (48 heads over 8 KV heads) and flash at hymba-1.5b's (25 over
-     5, head_dim 64, window 1024, S = 256 and 1100) and at
-     seamless-m4t-large-v2's decoder prefill (B = 8, S = 32, 16 heads over
-     16 KV heads, head_dim 64), which gets its own ``kernels`` row;
+     shapes (48 heads over 8 KV heads), granite-34b's (48 over 1),
+     chameleon-34b's (64 over 8) and command-r-plus-104b's (96 over 8),
+     paged at h2o-danube-3-4b's heads and head_dim 120 (32 over 8) and on
+     the small edge-case set at head_dim 120, flash at hymba-1.5b's (25
+     over 5, head_dim 64, window 1024, S = 256 and 1100), at
+     h2o-danube-3-4b's prefill (32 over 8, head_dim 120, window 4096, S =
+     256 and 4,200, where the window cuts; its own ``kernels`` row at S =
+     256), on head_dim 120's edge cases (a ragged S, a window across a
+     tile edge) and at seamless-m4t-large-v2's decoder prefill (B = 8, S
+     = 32, 16 heads over 16 KV heads, head_dim 64), which gets its own
+     ``kernels`` row;
   3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
@@ -61,8 +68,25 @@ Phases (any failure raises and the script exits non-zero):
      32-token target prefix, 32 greedy decode steps; encode, decoder
      prefill and decode timed apart; one flash launch per decoder layer
      and prefill (the encoder is not causal and takes no kernel);
+  4e-4i. the configs first served on the card, each like phase 3 (the
+     same engine and prompt lengths, bf16 weights from seed 0, the
+     kernels on), each confirming its params' bytes from
+     ``abstract_params`` before init and failing unless its peak leaves 4
+     GiB of the card free: 4e h2o-danube-3-4b (full, 7.68 GB; window
+     4096, so the dense slot path: flash 24 x prefills, no paged launch;
+     one more request of 4,200 prompt tokens and 64 new, whose prefill
+     passes the window and whose decode wraps the 4,096-slot ring), 4f
+     granite-34b (full, 88 layers, 67.32 GB; MQA, GELU MLP, LMB-paged:
+     paged 88 x rounds, flash 88 x prompts), 4g chameleon-34b (full, 48
+     layers, 67.51 GB; qk-norm, LMB-paged), 4h command-r-plus-104b (full
+     width, 16 of 64 layers, 56.62 GB; the 256,000-row tied readout,
+     LMB-paged), 4i mixtral-8x22b (full width, 10 of 56 layers, 50.49 GB;
+     MoE on the dense slot path, the MoE layer timed apart);
   5. reference: each reduced config in f32 (qwen2-1.5b, rwkv6-7b,
-     dbrx-132b, mixtral-8x22b, hymba-1.5b) served on the card and on the
+     dbrx-132b, mixtral-8x22b, hymba-1.5b, granite-34b, h2o-danube-3-4b,
+     command-r-plus-104b, chameleon-34b, and h2o-danube-3-4b at its
+     head_dim of 120, the one reduced case in which the kernels run at
+     120) served on the card and on the
      CPU (plain versions, which the tests hold to the JAX reference) must
      give the same logits, token streams and link bytes; reduced
      seamless-m4t-large-v2 the same prefill logits (within 1e-5) and
@@ -82,7 +106,7 @@ Phases (any failure raises and the script exits non-zero):
      params.  6c: a run stopped by the failure injector and resumed from
      its checkpoint gives the uninterrupted run's losses, and the loss
      falls over 30 steps.
-  7. the load sweep through ``repro_torch.serve.loadgen`` (after phase 4d
+  7. the load sweep through ``repro_torch.serve.loadgen`` (after phase 4i
      and phase 5 respectively).  7a: full-width qwen2-1.5b in bf16 with
      the kernels on, two tenants (Poisson and bursty, 16 requests each at
      7.5 requests/s of virtual time, prompts of 16-256 tokens, 16-32 new
@@ -161,6 +185,31 @@ ATTN_SHAPE = (12, 2, 128, 32, 16)
 #: dbrx-132b's attention (H, KV, hd), and hymba-1.5b's with its window
 DBRX_ATTN = (48, 8, 128)
 HYMBA_ATTN = (25, 5, 64, 1024)
+#: h2o-danube-3-4b's attention (H, KV, hd) and window: the one head_dim
+#: (120) that is not a multiple of 16
+H2O_ATTN = (32, 8, 120, 4096)
+#: the attention (H, KV, hd) of the configs phases 4f-4h serve paged:
+#: granite-34b's MQA (48 heads over 1 KV head: six head chunks of 8),
+#: chameleon-34b's and command-r-plus-104b's (12 heads a KV head: chunks
+#: of 8 and 4)
+GRANITE_ATTN = (48, 1, 128)
+CHAMELEON_ATTN = (64, 8, 128)
+COMMAND_R_ATTN = (96, 8, 128)
+#: phase 4e's one long request: prompt tokens (past the 4,096-token
+#: window) and new tokens
+H2O_LONG = (4200, 64)
+#: phases 4e-4i, the configs first served on the card: (label, config,
+#: layers, parameter bytes in bf16 from ``Model.abstract_params``).  The
+#: depth cuts follow dbrx-132b's budget (8 of 40 layers, 53.4 GB): full
+#: command-r-plus-104b would be 208 GB, full mixtral-8x22b 281 GB
+NEW_SERVES = (
+    ("phase 4e", "h2o-danube-3-4b", 24, 7_678_295_040),
+    ("phase 4f", "granite-34b", 88, 67_322_929_152),
+    ("phase 4g", "chameleon-34b", 48, 67_514_695_680),
+    ("phase 4h", "command-r-plus-104b", 16, 56_624_726_016),
+    ("phase 4i", "mixtral-8x22b", 10, 50_485_125_120))
+#: the least device memory a serve phase's peak must leave free
+MIN_FREE_GIB = 4.0
 #: seamless-m4t-large-v2's decoder prefill in phase 4d: (B, S, H, KV, hd),
 #: multi-head (KV = H, so one query head per KV head)
 SEAMLESS_FLASH = (8, 32, 16, 16, 64)
@@ -386,7 +435,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         return pa.split_plan(B, KV, mp, G=H // KV, sm_count=sms)
 
     errs = {"paged_attention": 0.0, "flash_attention": 0.0,
-            "flash_seamless": 0.0}
+            "flash_seamless": 0.0, "flash_h2o": 0.0}
     print(f"phase 2: kernels against their plain versions ({sms} SMs)")
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
@@ -408,6 +457,20 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         check(f"paged {tag} dbrx-132b B={B} H={h} KV={kv} plan={dplan}",
               pa.paged_attention_cuda(*args),
               pa.paged_attention_plain(*args), tol[dtype])
+        # paged at the decode batch of the configs phases 4f-4h serve (MQA
+        # in six head chunks; 12 heads a KV head in chunks of 8 and 4) and
+        # at h2o-danube-3-4b's heads and head_dim 120, which no registered
+        # config pages but the reference's kernel takes
+        for name, (h, kv, d) in (("granite-34b", GRANITE_ATTN),
+                                 ("chameleon-34b", CHAMELEON_ATTN),
+                                 ("command-r-plus-104b", COMMAND_R_ATTN),
+                                 ("h2o heads", H2O_ATTN[:3])):
+            args = paged_inputs(torch, gen, dtype, B, h, kv, d, T, MP,
+                                serve_lengths)
+            cplan = pa.split_plan(B, kv, MP, G=h // kv, sm_count=sms)
+            check(f"paged {tag} {name} B={B} H={h} KV={kv} hd={d} MP={MP} "
+                  f"plan={cplan}", pa.paged_attention_cuda(*args),
+                  pa.paged_attention_plain(*args), tol[dtype])
         # paged at full width, the split plan's edges: rows that end inside
         # a split of two pages and trailing splits with no live token (B 16
         # gives 8 splits of 2 pages), every page of MP live, MP = 13 not a
@@ -424,32 +487,42 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             for b, n in enumerate(lengths):
                 if n == 0 and bool(out[b].abs().max() != 0):
                     raise AssertionError("length-0 row is not zero")
-        # paged edge cases at hd 16 (the reduced config's head_dim)
+        # paged edge cases at hd 16 (the reduced configs' head_dim) and
+        # 120 (idle lanes: 15 chunks a row in bf16, 30 in f32)
         edge = [([0, 9], None), ([8, 12], None), ([0, 4], None),
                 ([16, 1, 0, 7], None), ([13, 20], 0.0), ([3], None)]
-        for lengths, so in edge:
+        for (lengths, so), d in ((e, d) for d in (16, 120) for e in edge):
             B = len(lengths)
-            a = paged_inputs(torch, gen, dtype, B, 8, 2, 16, 4, 6, lengths)
+            a = paged_inputs(torch, gen, dtype, B, 8, 2, d, 4, 6, lengths)
             out = pa.paged_attention_cuda(*a, scale_override=so)
-            check(f"paged {tag} hd16 lengths={lengths} scale={so}", out,
+            check(f"paged {tag} hd{d} lengths={lengths} scale={so}", out,
                   pa.paged_attention_plain(*a, scale_override=so),
                   tol[dtype])
             for b, n in enumerate(lengths):
                 if n == 0 and bool(out[b].abs().max() != 0):
                     raise AssertionError("length-0 row is not zero")
         # flash: the longest prompt at full width (qwen2-1.5b, dbrx-132b,
-        # hymba-1.5b with its window of 1024, and past it), then edge
-        # cases: S not a multiple of the 32-row q tile or the 64-key tile,
-        # windows that cross tile edges, B = 2, head dims 16/64/128/256 and
-        # the padded ones between (32 -> 64, 96 -> 128, 144 -> 256), not
-        # causal
+        # granite-34b, chameleon-34b, command-r-plus-104b, hymba-1.5b with
+        # its window of 1024 and h2o-danube-3-4b with its window of 4096,
+        # and each past its window), then edge cases: S not a multiple of
+        # the 32-row q tile or the 64-key tile, windows that cross tile
+        # edges, B = 2, head dims 16/64/128/256 and the padded ones between
+        # (32 -> 64, 96 and 120 -> 128, 144 -> 256), not causal
         hh, hkv, hd_h, hwin = HYMBA_ATTN
+        h2h, h2kv, h2d, h2win = H2O_ATTN
         for (B, S, h, kv, d, window, causal) in (
                 (1, prompt_max, H, KV, hd, None, True),
                 (*SEAMLESS_FLASH, None, True),
                 (1, prompt_max, *DBRX_ATTN, None, True),
+                (1, prompt_max, *GRANITE_ATTN, None, True),
+                (1, prompt_max, *CHAMELEON_ATTN, None, True),
+                (1, prompt_max, *COMMAND_R_ATTN, None, True),
                 (1, prompt_max, hh, hkv, hd_h, hwin, True),
                 (1, 1100, hh, hkv, hd_h, hwin, True),
+                (1, prompt_max, h2h, h2kv, h2d, h2win, True),
+                (1, H2O_LONG[0], h2h, h2kv, h2d, h2win, True),
+                (1, 100, 4, 2, 120, None, True),
+                (2, 70, 4, 1, 120, 40, True),
                 (1, 100, H, KV, hd, None, True),
                 (2, 70, H, KV, hd, 40, True),
                 (1, prompt_max, H, KV, hd, 100, True),
@@ -478,6 +551,9 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             if dtype == torch.bfloat16 and (B, S, h, kv, d) == \
                     SEAMLESS_FLASH:
                 errs["flash_seamless"] = e
+            if dtype == torch.bfloat16 and (S, h, d) == (prompt_max, h2h,
+                                                         h2d):
+                errs["flash_h2o"] = e
     torch.cuda.synchronize()
 
     # timing at the main path's shapes, bf16
@@ -498,6 +574,9 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     seamless = tuple(torch.randn((B_s, S_s, h, hd_s), generator=gen,
                                  device="cuda").to(torch.bfloat16)
                      for h in (H_s, KV_s, KV_s))
+    h2o = tuple(torch.randn((1, prompt_max, h, h2d), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for h in (h2h, h2kv, h2kv))
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -514,42 +593,58 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                   "qwen2-1.5b"),
         flash_row(torch, F, fa, seamless, errs["flash_seamless"],
                   "seamless-m4t-large-v2"),
+        flash_row(torch, F, fa, h2o, errs["flash_h2o"], "h2o-danube-3-4b",
+                  window=h2win),
     ]
 
 
-def flash_row(torch, F, fa, qkv, err, path) -> dict:
+def flash_row(torch, F, fa, qkv, err, path, window=None) -> dict:
     """The flash kernel's ``kernels`` row at one path's prefill shape
-    (bf16, causal): both times, the plain version's, the bound, and
+    (bf16, causal, the path's window): both times, the plain version's,
+    the bound (the visible keys' products only), and
     ``scaled_dot_product_attention``'s times and its error against the
-    plain version."""
+    plain version (causal, or with the window as a boolean mask where it
+    cuts)."""
     q, k, v = qkv
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    flops = 4 * B * (S * (S + 1) // 2) * hd * H
+    W = S if window is None else min(window, S)
+    visible = W * (W + 1) // 2 + (S - W) * W   # keys seen, summed over q
+    flops = 4 * B * visible * hd * H
     nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * q.element_size()
     by_ops = flops / PEAK_FLOPS["bfloat16"]
     by_bytes = nbytes / HBM_BYTES_PER_S
-    times = both_times(lambda: fa.flash_attention_cuda(q, k, v))
+    times = both_times(lambda: fa.flash_attention_cuda(q, k, v,
+                                                       window=window))
     qt, kt, vt = (x.transpose(1, 2) for x in qkv)
+    mask = None
+    if W < S:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - W)
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=mask is None,
                                               enable_gqa=True)
     lib = both_times(sdpa)
     lib_err = max_err(sdpa().transpose(1, 2),
-                      fa.flash_attention_plain(q, k, v))
-    print(f"  sdpa vs flash plain bf16 B={B} S={S} H={H} KV={KV}: "
-          f"max_abs_err={lib_err:.3e}")
+                      fa.flash_attention_plain(q, k, v, window=window))
+    print(f"  sdpa vs flash plain bf16 B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"window={window}: max_abs_err={lib_err:.3e}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:94",
             "launches": 0, "max_abs_err": err, "ms": times["ms"],
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, window=window)),
             "bound_ms": max(by_ops, by_bytes) * 1e3,
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": lib["ms"], "device_ms": times["device_ms"],
             "library_device_ms": lib["device_ms"], "path": path,
-            "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} causal bf16"}
+            "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} causal"
+                     f"{'' if window is None else f' window={window}'} "
+                     "bf16"}
 
 
 def close(name: str, got, want, tol: float) -> float:
@@ -716,12 +811,17 @@ def prompts_for(cfg, lens, news, seed):
             for n, m in zip(lens, news)]
 
 
-def serve_phase(torch, label, cfg, prompts, ecfg, apart=()):
+def serve_phase(torch, label, cfg, prompts, ecfg, apart=(),
+                param_bytes=None, inspect=None):
     """Serve ``cfg`` at full width from random bf16 weights drawn from
     seed 0, with the kernels on: a warm-up request (cuBLAS handles, the
     allocator), then the measured run, with the kernels' launch counts and
     the dispatchers' call counts reset just before it and read just after,
-    then the breakdown run.  The params are dropped on return."""
+    then the breakdown run.  With ``param_bytes``, the params' bytes are
+    read from ``Model.abstract_params`` first and must equal it, and the
+    measured run's peak must leave ``MIN_FREE_GIB`` of the card free.
+    ``inspect(engine, requests)`` looks at the measured run before the
+    engine is dropped.  The params are dropped on return."""
     from repro_torch.core.metrics import GLOBAL_METRICS
     from repro_torch.kernels import cuda_build, ops
     from repro_torch.models import build_model
@@ -733,6 +833,16 @@ def serve_phase(torch, label, cfg, prompts, ecfg, apart=()):
                              "the card")
     torch.cuda.reset_peak_memory_stats()
     flags = Flags(remat=False, use_kernels=True)
+    if param_bytes is not None:
+        abstract = build_model(cfg, flags, device="cuda").abstract_params()
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in _leaves(abstract))
+        print(f"{label}: {cfg.name}, {cfg.num_layers} layers: {nbytes:,} B "
+              f"of bf16 params (abstract_params; expected "
+              f"{param_bytes:,})")
+        if nbytes != param_bytes:
+            raise AssertionError(f"{cfg.name}: {nbytes} B of params, not "
+                                 f"{param_bytes}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t = time.monotonic()
     params = build_model(cfg, flags, device="cuda").init(gen)
@@ -776,9 +886,19 @@ def serve_phase(torch, label, cfg, prompts, ecfg, apart=()):
         "lmb_resident_pages_at_end": eng.kv.lmb_resident_pages(),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    if inspect is not None:
+        inspect(eng, reqs)
     system.close()
-    del eng
+    del eng, reqs
     print("  serve: " + json.dumps(result))
+    if param_bytes is not None:
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        free = total - result["peak_mem_gib"]
+        print(f"  peak {result['peak_mem_gib']:.2f} of {total:.2f} GiB, "
+              f"{free:.2f} GiB free at peak")
+        if free < MIN_FREE_GIB:
+            raise AssertionError(f"{cfg.name}: {free:.2f} GiB free at peak,"
+                                 f" under {MIN_FREE_GIB}")
     result["breakdown"] = breakdown_phase(torch, cfg, flags, params, prompts,
                                           ecfg, apart)
     return result
@@ -922,6 +1042,82 @@ def serve_phases(torch, lens, news, prompts) -> dict:
                             "flash_attention": cfg.num_layers * len(prompts)})
     if sum(res["lmb_link_bytes"].values()) <= 0:
         raise AssertionError("hymba's KV never crossed the LMB link")
+    free_card(torch)
+    return served
+
+
+def ring_check(cfg, req) -> dict:
+    """Phase 4e's long request on the dense slot path: its prompt passed
+    the window, and its decode wrapped the ring of ``sliding_window``
+    slots (every slot written, the last position past the ring)."""
+    cache = req._cache
+    C = cache["k"].shape[2]
+    n = len(req.prompt)
+    last = n + len(req.out_tokens) - 2      # the last token decoded
+    pos = cache["pos"][0]
+    got = {"prompt": n, "new_tokens": len(req.out_tokens), "ring_slots": C,
+           "step": cache["step"], "last_position": int(pos.max()),
+           "its_slot": last % C}
+    print(f"  long request: {json.dumps(got)}")
+    if C != cfg.sliding_window or n <= C or cache["step"] != last + 1 or \
+            got["last_position"] != last or int(pos.min()) < 0 or \
+            int(pos[last % C]) != last:
+        raise AssertionError(f"the long request did not wrap the ring: "
+                             f"{got}")
+    return got
+
+
+def new_serve_phases(torch, lens, news) -> dict:
+    """Phases 4e-4i: the configs the card had not served before, at full
+    width (``NEW_SERVES`` gives each its depth), each with phase 3's
+    engine, prompt lengths and checks, the params' bytes confirmed from
+    ``abstract_params`` before init.  h2o-danube-3-4b (4e) and
+    mixtral-8x22b (4i) have a window, so they decode on the dense slot
+    path: flash at every prefill and no paged launch; 4e serves one more
+    request of ``H2O_LONG``, whose prefill passes the window and whose
+    decode wraps the ring.  granite-34b, chameleon-34b and
+    command-r-plus-104b (4f-4h) decode on the LMB-paged path.
+    mixtral-8x22b's MoE layer is timed apart, as dbrx's."""
+    from repro_torch.configs.base import MOE, get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import EngineConfig
+
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    served = {}
+    for seed, (label, arch, layers, nbytes) in enumerate(NEW_SERVES, 5):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        prompts = prompts_for(cfg, lens, news, seed)
+        run_ecfg, inspect, ring = ecfg, None, {}
+        if arch == "h2o-danube-3-4b":
+            n, m = H2O_LONG
+            prompts.append(prompts_for(cfg, [n], [m], seed)[0])
+            run_ecfg = dataclasses.replace(ecfg, max_seq_len=n + m)
+
+            def inspect(eng, reqs, cfg=cfg, ring=ring):
+                ring.update(ring_check(cfg, reqs[-1]))
+        apart = (("moe", moe_mod, "moe_apply"),) \
+            if cfg.block_type == MOE else ()
+        served[arch] = res = serve_phase(
+            torch, label, cfg, prompts, run_ecfg, apart, param_bytes=nbytes,
+            inspect=inspect)
+        L = cfg.num_layers
+        if cfg.sliding_window is None:
+            check_paged(res, cfg)
+            check_counts(res, cfg, {
+                "paged_attention": L * res["paged_rounds"],
+                "flash_attention": L * len(prompts)})
+        else:
+            if res["decode_path"] != "dense" or res["paged_rounds"] != 0:
+                raise AssertionError(f"{arch} left the dense slot path")
+            check_counts(res, cfg, {"flash_attention": L * len(prompts),
+                                    "paged_attention": 0,
+                                    "paged_attention_decode": 0})
+            if sum(res["lmb_link_bytes"].values()) <= 0:
+                raise AssertionError(f"{arch}'s KV never crossed the LMB "
+                                     "link")
+        if ring:
+            res["long_request"] = ring
     free_card(torch)
     return served
 
@@ -1106,9 +1302,10 @@ def _leaves(tree):
 
 
 # ----------------------------------------------------------------- phase 5
-def reference_phase(torch, arch, lengths, max_seq_len):
-    """A reduced config in f32: the card (kernels) against the CPU (plain
-    versions) on the same params and prompts."""
+def reference_phase(torch, arch, lengths, max_seq_len, cfg=None):
+    """A reduced config in f32 (``cfg``, by default ``arch``'s
+    ``.reduced()``): the card (kernels) against the CPU (plain versions)
+    on the same params and prompts."""
     import numpy as np
     from repro_torch.configs.base import MOE, get_config
     from repro_torch.models import build_model
@@ -1116,7 +1313,7 @@ def reference_phase(torch, arch, lengths, max_seq_len):
     from repro_torch.models.flags import Flags
     from repro_torch.serve import EngineConfig
 
-    cfg = get_config(arch).reduced()
+    cfg = get_config(arch).reduced() if cfg is None else cfg
     flags = Flags(remat=False, use_kernels=True)
     cpu_params = build_model(cfg, flags, device="cpu").init(
         torch.Generator().manual_seed(0))
@@ -1157,8 +1354,8 @@ def reference_phase(torch, arch, lengths, max_seq_len):
         lg, _ = model.prefill(params, {"tokens": tok.to(device)},
                               model.init_cache(1, max_seq_len))
         logits.append(lg.cpu())
-    print(f"phase 5: reduced {arch} f32, card against CPU plain path, "
-          f"{path} decode")
+    print(f"phase 5: reduced {arch} f32, head_dim {cfg.head_dim_}, card "
+          f"against CPU plain path, {path} decode")
     if margins:
         m, call, token = min(margins)
         print(f"  smallest router margin (k-th minus (k+1)-th logit) on the "
@@ -1866,6 +2063,7 @@ def main(argv=None) -> int:
         return 1
     try:
         import numpy as np
+        from repro_torch.configs.base import get_config
         from repro_torch.kernels import cuda_build
     except ImportError as exc:
         print(f"chip_smoke: the port is not here ({exc})", file=sys.stderr)
@@ -1896,7 +2094,7 @@ def main(argv=None) -> int:
     kernels.append(rwkv_kernel_phase(torch, max(lens)))
     served = serve_phases(torch, lens, news, prompts)
     seamless = seamless_phase(torch)
-    free_card(torch)
+    served.update(new_serve_phases(torch, lens, news))
     swept = sweep_phase(torch, card)
 
     for k in kernels:
@@ -1918,6 +2116,13 @@ def main(argv=None) -> int:
     reference_phase(torch, "dbrx-132b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "mixtral-8x22b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "hymba-1.5b", (5, 13, 20, 9, 17, 70), 128)
+    for arch in ("granite-34b", "h2o-danube-3-4b", "command-r-plus-104b",
+                 "chameleon-34b"):
+        reference_phase(torch, arch, (5, 13, 20, 9, 17), 64)
+    # the one reduced case in which the card's kernels run at head_dim 120
+    reference_phase(torch, "h2o-danube-3-4b", (5, 13, 20, 9, 17), 64,
+                    cfg=dataclasses.replace(get_config(
+                        "h2o-danube-3-4b").reduced(), head_dim=120))
     encdec_reference_phase(torch)
     sweep_reference_phase(torch)
     trained = train_phase(torch, card)

@@ -80,7 +80,7 @@ from repro_torch.core.metrics import Metrics, GLOBAL_METRICS
 from repro_torch.core.offload import TierExecutor
 from repro_torch.core.overlap import OverlapScheduler
 from repro_torch.core.policy import EvictionPolicy, Prefetcher, make_policy
-from repro_torch.core.pool import OutOfMemory
+from repro_torch.core.pool import BLOCK_BYTES, OutOfMemory
 from repro_torch.obs.trace import SpanTracer
 
 ONBOARD = "onboard"
@@ -185,7 +185,12 @@ class LinkedBuffer:
         self._onboard_free: List[int] = list(range(self.onboard_pages))[::-1]
         self._onboard_owner: Dict[int, int] = {}  # slot -> logical page
 
-        self._lmb_chunk_pages = lmb_chunk_pages
+        # an LMB chunk is one capability allocation, which must lie in one
+        # pool block: pages of more than BLOCK_BYTES / lmb_chunk_pages
+        # (chameleon-34b's 6 MiB KV page at 32 tokens) take chunks of
+        # fewer pages, where the reference's chunk cannot be granted
+        self._lmb_chunk_pages = max(1, min(
+            lmb_chunk_pages, BLOCK_BYTES // self.lmb_page_bytes))
         self._lmb_scales: Dict[int, float] = {}   # slot -> absmax scale
         self._lmb_pools: List[Optional[torch.Tensor]] = []  # None = reclaimed
         #: per-chunk capability for the backing LMB allocation

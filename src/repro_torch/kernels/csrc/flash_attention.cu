@@ -40,8 +40,13 @@
 //   version's f32 P this is within the bf16 tolerance of 2e-2 for
 //   unit-variance inputs.
 //   head_dim is a template parameter, instantiated at 16, 64, 128 and 256;
-//   other multiples of 16 are zero-padded up to the next one in the loads
-//   (exact for Q K^T; the padded output columns are not written).  K/V
+//   any other multiple of 8 runs in the next one up (h2o-danube's 120 in
+//   128), zero-padded inside the kernel: a row of hd values is hd / 8
+//   whole 16-byte chunks, the Q, K and V loaders copy those and zero-fill
+//   the rest of the tile's row (cp.async with a source size of 0, so no
+//   chunk index reaches into the next row), which is exact for Q K^T and
+//   P V, and the store skips the padded columns.  The scale is the
+//   caller's 1 / sqrt(hd), not the tile's width.  K/V
 //   rows past S are zero-filled by the copies, so masked lanes never
 //   multiply garbage; the causal and window masks are applied only on
 //   tiles that straddle an edge, and the loop over K tiles starts at the
@@ -568,14 +573,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel).  q/out [B, S, H, hd] and k/v [B, S, KV, hd], all contiguous,
-// hd a multiple of 16 in 16..256.  window <= 0 means no window.  Returns
+// hd a multiple of 8 in 16..256.  window <= 0 means no window.  Returns
 // a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int hd, int causal,
                                       int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd % 16 != 0 || hd < 16 || hd > 256)
+  if (hd % 8 != 0 || hd < 16 || hd > 256)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_f32(q, k, v, out, B, S, H, KV, hd, causal, window, scale,

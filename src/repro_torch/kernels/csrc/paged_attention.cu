@@ -24,7 +24,11 @@
 //   groups of `lpt` lanes, one token per group at a time: each lane reads
 //   16 bytes of the token's K and V row straight into registers (no
 //   shared-memory staging), holds the matching slice of every head's q in
-//   registers, and the group's dot products meet in warp shuffles.  Each
+//   registers, and the group's dot products meet in warp shuffles.  `lpt`
+//   is the row's chunk count C rounded up to a power of two, so a head_dim
+//   whose C is not one leaves lanes idle (hd 120: C 15 of lpt 16 in bf16,
+//   30 of 32 in f32): an idle lane loads nothing, keeps zeros for its q, K
+//   and V, so it adds 0 to every shuffle sum, and stores nothing.  Each
 //   group keeps an online softmax per head in registers, updated once per
 //   batch of 4 tokens (scores in log2 units, so each exponential is one
 //   exp2f); at the end the groups merge in shared memory by log-sum-exp
@@ -53,7 +57,10 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxG = 8;          // query heads one block scores
 constexpr int kMaxGroups = 64;    // kThreads / the smallest lpt (2)
-constexpr int kAccFloats = 1024;  // groups * hd <= 128 * 16 B / 2 B
+// groups * hd <= 1024 for any hd the launcher takes: groups = 128 / lpt
+// and hd <= lpt * (16 B / element) while C <= 32 (8 groups x 120 = 960 at
+// hd 120 in bf16); past 32 chunks (f32, hd > 128) 4 groups x 256
+constexpr int kAccFloats = 1024;
 constexpr int kMaxSplits = 512;   // the combine kernel's weights in smem
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -331,7 +338,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the pools'
+// dtype: 0 = float32, 1 = bfloat16.  hd a multiple of 8 in 16..256 (whole
+// 16-byte chunks in both dtypes).  Strides are in elements; the pools'
 // base pointers and page/token/head strides must be 16-byte aligned.
 // part_acc [B * H * n_splits * hd] and part_ml [B * H * n_splits * 2] are
 // f32 scratch.  Split s takes page-table columns [s * pages_per_split,
@@ -344,7 +352,7 @@ extern "C" int paged_attention_launch(
     int pages_per_split, int64_t k_sp, int64_t k_st, int64_t k_sh,
     int64_t v_sp, int64_t v_st, int64_t v_sh, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd % 16 != 0 || hd < 16 || hd > 256 || n_splits < 1 ||
+  if (hd % 8 != 0 || hd < 16 || hd > 256 || n_splits < 1 ||
       n_splits > kMaxSplits || pages_per_split < 1)
     return (int)cudaErrorInvalidValue;
   const int elems = dtype == 0 ? 4 : 8;  // per 16-byte chunk

@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: SMs of an H100 SXM, the default of the kernels' host-side plans
 H100_SXM_SMS = 132
 
+#: the head_dims the attention kernels (flash, paged) take, as the
+#: wrappers state it when they refuse one
+HEAD_DIM_RULE = "16..256, a multiple of 8"
+
 #: kernel launches per kernel name since the last reset
 LAUNCHES: Dict[str, int] = {}
 
@@ -58,6 +62,13 @@ def sm_count(device) -> int:
     """The SM count of a CUDA device (read once per device)."""
     import torch
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def head_dim_ok(hd: int) -> bool:
+    """Whether the flash and paged kernels take ``hd``: a bf16 row of a
+    multiple of 8 values is whole 16-byte chunks, the unit both kernels
+    load, and 256 bounds their tiles and registers."""
+    return hd % 8 == 0 and 16 <= hd <= 256
 
 
 def _nvcc() -> str:

@@ -81,8 +81,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
            f"{tuple(q.shape)}")
     KV = k.shape[2]
     _check(KV > 0 and H % KV == 0, lambda: f"{H} heads over {KV} kv heads")
-    _check(hd % 16 == 0 and 16 <= hd <= 256,
-           lambda: f"head_dim {hd} (16..256, a multiple of 16)")
+    _check(cuda_build.head_dim_ok(hd),
+           lambda: f"head_dim {hd} ({cuda_build.HEAD_DIM_RULE})")
     _check(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
            "q, k and v must be contiguous")
     _check(window is None or window > 0,

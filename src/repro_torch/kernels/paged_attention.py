@@ -114,8 +114,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
            "k_pages/v_pages must both be [P,T,KV,hd]")
     P, T, KV, hd_k = k_pages.shape
     _check(hd_k == hd, lambda: f"head_dim {hd_k} != q's {hd}")
-    _check(hd % 16 == 0 and 16 <= hd <= 256,
-           lambda: f"head_dim {hd} (16..256, a multiple of 16)")
+    _check(cuda_build.head_dim_ok(hd),
+           lambda: f"head_dim {hd} ({cuda_build.HEAD_DIM_RULE})")
     _check(KV > 0 and H % KV == 0, lambda: f"{H} heads over {KV} kv heads")
     k_st, v_st = k_pages.stride(), v_pages.stride()
     _check(k_st[3] == 1 and v_st[3] == 1,

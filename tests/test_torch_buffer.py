@@ -347,3 +347,40 @@ def test_write_to_a_shared_page_leaks_in_the_reference_not_the_port(
             buf.release(p)                       # the last holder
             assert buf.tier_of(p) is None
             buf.check_invariants()
+
+
+def test_pages_past_a_64th_of_a_block_spill_in_the_port_not_the_reference(
+        modelling_reference):
+    """A reference fault the port routes around.  The LMB tier grows in
+    chunks of ``lmb_chunk_pages`` (64) pages, one capability allocation
+    each, which must lie in one 256 MiB pool block; a page of more than
+    4 MiB, such as chameleon-34b's KV page of 6,291,456 B (48 layers x 2
+    x 32 tokens x 8 KV heads x 128, bf16), makes the first spill raise
+    ``OutOfMemory`` in the reference.  The port takes as many pages a
+    chunk as a block holds (42 here) and spills."""
+    from repro.core.pool import BLOCK_BYTES as JBLOCK_BYTES
+    from repro.core.pool import OutOfMemory as JOutOfMemory
+    from repro_torch.core.pool import BLOCK_BYTES
+    page = (48, 2, 32, 8, 128)
+    page_bytes = int(np.prod(page)) * 2
+    assert page_bytes == 6_291_456 and BLOCK_BYTES == JBLOCK_BYTES
+    for pkg in ("jax", "torch"):
+        make_system = jsystem_for if pkg == "jax" else system_for
+        system = make_system("d0", host_id="h0", pool_gib=1)
+        extra = {"dtype": jnp.bfloat16} if pkg == "jax" else {
+            "dtype": torch.bfloat16, "executor": TierExecutor("cpu")}
+        buf = system.buffer(name="kv", device_id="d0", page_shape=page,
+                            onboard_pages=1, **extra)
+        buf.append_pages(2)
+        if pkg == "jax":
+            buf.write(0, jnp.full(page, 2.0, jnp.bfloat16))
+            with pytest.raises(JOutOfMemory, match="exceeds one"):
+                buf.write(1, jnp.ones(page, jnp.bfloat16))   # page 0 spills
+            continue
+        assert buf._lmb_chunk_pages == BLOCK_BYTES // page_bytes == 42
+        buf.write(0, torch.full(page, 2.0, dtype=torch.bfloat16))
+        buf.write(1, torch.ones(page, dtype=torch.bfloat16))  # page 0 spills
+        assert (buf.tier_of(0), buf.tier_of(1)) == ("lmb", "onboard")
+        assert float(buf.read(0).float().mean()) == 2.0
+        assert float(buf.read(1).float().mean()) == 1.0
+        buf.check_invariants()

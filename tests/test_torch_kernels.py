@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.paged_attention import paged_attention_xla
+from repro_torch.configs.base import RWKV6, get_config, list_configs
 from repro_torch.kernels import cuda_build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
@@ -84,6 +85,7 @@ def _check_paged(inputs, scale_override=None):
     (2, 2, 6, 16, 12, 8, 4),     # G = 6, KV = 2 (full-width qwen2)
     (4, 2, 4, 64, 16, 16, 3),
     (2, 2, 1, 128, 6, 4, 3),     # MHA at full head_dim
+    (2, 2, 4, 120, 8, 8, 4),     # h2o-danube-3-4b's head_dim 120
 ])
 def test_paged_plain_matches_jax(B, KV, G, hd, P, T, MP):
     lengths, table = _random_table(B * 10 + G, B, P, T, MP)
@@ -157,6 +159,7 @@ def test_paged_plain_reads_strided_pool_views():
     (1, 70, 6, 1, 16),       # MQA, S not a multiple of the block
     (1, 64, 12, 2, 128),     # full-width qwen2 heads
     (8, 32, 16, 16, 64),     # seamless-m4t's decoder prefill (MHA)
+    (1, 64, 4, 2, 120),      # h2o-danube-3-4b's head_dim 120
 ])
 @pytest.mark.parametrize("window", [None, 24])
 def test_flash_plain_matches_jax(B, S, H, KV, hd, window):
@@ -352,6 +355,37 @@ def test_dispatchers_count_calls_and_take_the_plain_path_on_cpu():
         before["paged_attention_decode"] + 1
 
 
+#: every registered config with attention (RWKV6 has none)
+ATTENTION_ARCHS = [a for a in list_configs()
+                   if get_config(a).block_type != RWKV6]
+
+
+def test_attention_archs_are_all_but_rwkv6():
+    assert sorted(set(list_configs()) - set(ATTENTION_ARCHS)) == \
+        ["rwkv6-7b"]
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_attention_kernels_take_every_registered_head_dim(arch):
+    """The wrappers' head_dim rule, run on every registered config that
+    has attention, at full width and reduced: a config the kernels could
+    not take fails here, not first on the card."""
+    cfg = get_config(arch)
+    for c in (cfg, cfg.reduced()):
+        assert cuda_build.head_dim_ok(c.head_dim_), (arch, c.head_dim_)
+
+
+@pytest.mark.parametrize("hd,ok", [
+    (16, True), (24, True), (120, True), (128, True), (136, True),
+    (256, True), (8, False), (12, False), (100, False), (130, False),
+    (264, False)])
+def test_head_dim_rule(hd, ok):
+    """Multiples of 8 from 16 to 256 (whole 16-byte bf16 chunks), as both
+    wrappers' message states; the reference takes any head_dim."""
+    assert cuda_build.head_dim_ok(hd) is ok
+    assert cuda_build.HEAD_DIM_RULE == "16..256, a multiple of 8"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch or raise; they never compute on the CPU."""
     inputs = _torch(*_paged_inputs(3, 1, 4, 2, 16, 8, 4, [5], [[0, 1, -1]]))
@@ -380,8 +414,13 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
     not; the flash kernel rounds p to bf16 and its plain version does
     not).  Paged on the split plan's edges (rows ending inside a split of
     two pages, trailing empty splits, every page live, MP = 13 over 7
-    splits, B = 1 at 16 pages); flash on S off its tiles, windows across
-    tile edges, B = 2, each head_dim route and a non-causal case."""
+    splits, B = 1 at 16 pages), at head_dim 120 on length 0, lengths on
+    a page boundary and unmapped pages holding garbage, and at granite's
+    48 over 1 and command-r-plus's 96 over 8 heads; flash on S off its
+    tiles, windows across tile edges, B = 2, each head_dim route (120 in
+    the 128 instantiation), a non-causal case and h2o-danube-3-4b's
+    prefill (32 over 8 heads, head_dim 120, window 4096) at S 256 and
+    4,200, where the window cuts."""
     for seed, (B, MP, T, lengths) in enumerate((
             (3, 4, 8, None),
             (16, 16, 8, [128, 9, 0, 1] * 3 + [120, 23, 16, 2]),
@@ -405,6 +444,26 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
             paged_attention_cuda(q, kp, vp, table, lens).float(),
             paged_attention_plain(q, kp, vp, table, lens).float(),
             rtol=tol, atol=tol)
+    for seed, (H, KV, hd, lengths, table) in enumerate((
+            (8, 2, 120, [0, 9], [[-1, -1, -1], [0, 1, 2]]),
+            (8, 2, 120, [8, 16], [[3, 4, -1], [5, 6, -1]]),
+            (8, 2, 120, [16, 1, 0, 7], [[0, 1, 2], [4, -1, -1],
+                                        [-1, -1, -1], [5, 6, -1]]),
+            (32, 8, 120, [23, 5], [[1, 2, 3], [0, -1, -1]]),
+            (48, 1, 128, [23, 5], [[1, 2, 3], [0, -1, -1]]),
+            (96, 8, 128, [23, 5], [[1, 2, 3], [0, -1, -1]]))):
+        q, kp, vp, table, lens = (t.to(cuda_device) for t in _torch(
+            *_paged_inputs(seed, len(lengths), H, KV, hd, 9, 8, lengths,
+                           table)))
+        kp[7:] = 1e4                       # never mapped: must not leak
+        vp[7:] = -1e4
+        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+        got = paged_attention_cuda(q, kp, vp, table, lens)
+        torch.testing.assert_close(
+            got.float(), paged_attention_plain(q, kp, vp, table,
+                                               lens).float(),
+            rtol=tol, atol=tol)
+        assert not got[lens == 0].any()
     g = torch.Generator(device=cuda_device).manual_seed(0)
     for B, S, H, KV, hd, window, causal in (
             (1, 100, 12, 2, 128, None, True), (1, 100, 12, 2, 128, 24, True),
@@ -412,7 +471,10 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
             (2, 100, 4, 1, 16, 24, True), (1, 64, 8, 8, 64, 16, True),
             (1, 100, 4, 2, 32, None, True), (1, 100, 4, 2, 96, 50, True),
             (1, 90, 4, 1, 144, None, True), (1, 100, 4, 1, 256, None, True),
-            (1, 100, 4, 2, 64, None, False), (8, 32, 16, 16, 64, None, True)):
+            (1, 100, 4, 2, 64, None, False), (8, 32, 16, 16, 64, None, True),
+            (1, 100, 4, 2, 120, None, True), (2, 70, 4, 1, 120, 40, True),
+            (1, 256, 32, 8, 120, 4096, True),
+            (1, 4200, 32, 8, 120, 4096, True)):
         q = torch.randn(B, S, H, hd, generator=g, device=cuda_device)
         k = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)
         v = torch.randn(B, S, KV, hd, generator=g, device=cuda_device)

@@ -180,16 +180,36 @@ def test_paged_and_dense_decode_agree(jax_params):
 @pytest.mark.parametrize("arch", ["granite-34b", "h2o-danube-3-4b",
                                   "command-r-plus-104b", "chameleon-34b"])
 def test_dense_configs_match_reference(arch):
-    """The other decoder-only DENSE configs at ``.reduced()`` (gelu and one
-    KV head, head_dim 120 and a window, qk-norm): a 21-token prompt, past
-    the reduced window of 16, then three decode steps; logits within
-    1e-4."""
-    jcfg = jget_config(arch).reduced()
+    """The other decoder-only DENSE configs at ``.reduced()`` (granite's
+    gelu and one KV head, h2o-danube's window, chameleon's qk-norm; every
+    ``.reduced()`` config has head_dim 16, so h2o-danube's 120 has a test
+    of its own below): a 21-token prompt, past the reduced window of 16,
+    then three decode steps; logits within 1e-4."""
+    _dense_config_matches_reference(jget_config(arch).reduced(),
+                                    get_config(arch).reduced())
+
+
+def test_h2o_danube_at_head_dim_120_matches_reference():
+    """Reduced h2o-danube-3-4b at its real head_dim of 120 (4 heads over
+    1 KV head, window 16): the prefill past the window, through the
+    reference's Pallas flash kernel (interpret mode) and the port's
+    dispatcher, then three decode steps; logits within 1e-4."""
+    jcfg = dataclasses.replace(jget_config("h2o-danube-3-4b").reduced(),
+                               head_dim=120)
+    tcfg = dataclasses.replace(get_config("h2o-danube-3-4b").reduced(),
+                               head_dim=120)
+    before = ops.dispatch_counts()["flash_attention"]
+    _dense_config_matches_reference(jcfg, tcfg)
+    assert ops.dispatch_counts()["flash_attention"] - before == \
+        tcfg.num_layers
+
+
+def _dense_config_matches_reference(jcfg, tcfg):
     jparams = jbuild_model(jcfg, JFlags(remat=False)).init(
         jax.random.key(0))
     jmodel = jbuild_model(jcfg, JFlags(remat=False, use_kernels=True))
-    tmodel = build_model(get_config(arch).reduced(),
-                         Flags(remat=False, use_kernels=True), device="cpu")
+    tmodel = build_model(tcfg, Flags(remat=False, use_kernels=True),
+                         device="cpu")
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                 device="cpu")
     tokens = np.random.default_rng(5).integers(0, 128, (2, 21)).astype(
