@@ -44,11 +44,29 @@ Phases (any failure raises and the script exits non-zero):
      256), on head_dim 120's edge cases (a ragged S, a window across a
      tile edge) and at seamless-m4t-large-v2's decoder prefill (B = 8, S
      = 32, 16 heads over 16 KV heads, head_dim 64), which gets its own
-     ``kernels`` row;
+     ``kernels`` row; and both kernels at every head_dim
+     ``cuda_build.head_dim_ok`` admits (16, 24, ..., 256), in both
+     dtypes: paged at B 3, 2 KV heads of 2, T 8, MP 5 on a row of length
+     0, a row ending mid-page before unmapped columns of garbage pages
+     and a row using every column, flash causal at S 70;
   3. serve qwen2-1.5b: full width in bf16 with the kernels on, random
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
-     after this run, and a second run times each engine stage apart;
+     after this run, and a second run times each engine stage apart.
+     Every paged serve phase (3, 4b, 4f-4h) runs the engine as it comes:
+     each batch size's first round eager, then the paged step captured
+     as one CUDA graph per batch size and replayed, its launch counts
+     exact through replays, and fails unless the eager rounds (one per
+     batch size) and replays together are its paged rounds;
+  3s. qwen2-1.5b (full) and dbrx-132b (full width, 8 of 40 layers)
+     served eager (``staged=False``) and staged, the same params and
+     prompts, each engine twice (the second run times the model step per
+     round, the device synchronised around it): equal streams, link
+     bytes, onboard hits and misses and launch counts; prints captures
+     and replays, the step per round and tokens/s side by side (three
+     fresh engines' first runs each, staged over eager); one replay
+     traced with ``torch.profiler`` must hold one paged split and one
+     combine kernel a layer, and gives dbrx-132b's MoE share of it;
   4. serve rwkv6-7b: full width in bf16 with the kernels on, the same 8
      prompt lengths, its recurrent state in each request's dense slot (no
      KV, so no LMB traffic, by the reference's design); one scan launch
@@ -142,6 +160,10 @@ Phases (any failure raises and the script exits non-zero):
      predicted peak must lie within 10 % (decode) and 20 % (train) of the
      rise in ``torch.cuda.max_memory_allocated()`` over the step; each
      prints the measured step time beside the roofline's and their ratio.
+  9. last: a host sync injected into the staged paged step (reduced
+     qwen2-1.5b) must make the engine raise at capture (the second
+     round at a batch size), with no graph made and no eager round run
+     instead.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
@@ -198,6 +220,18 @@ COMMAND_R_ATTN = (96, 8, 128)
 #: phase 4e's one long request: prompt tokens (past the 4,096-token
 #: window) and new tokens
 H2O_LONG = (4200, 64)
+#: phase 3s: fresh engines, eager and staged, whose first runs' tokens/s
+#: are compared in pairs, the order alternating
+FRESH_PAIRS = 3
+#: phase 3s: name parts of cuBLAS's GEMM kernels on Hopper (nvjet),
+#: CUTLASS's and older cuBLAS's
+GEMM_KERNELS = ("nvjet", "gemm", "xmma")
+#: phase 2's head_dim sweep: every value the kernels' rule admits
+#: (multiples of 8 from 16 to 256), paged at (B, H, KV, T, MP, lengths)
+#: and flash causal at (B, S, H, KV)
+SWEEP_HEAD_DIMS = tuple(range(16, 257, 8))
+SWEEP_PAGED = (3, 4, 2, 8, 5, [0, 13, 40])
+SWEEP_FLASH = (1, 70, 4, 2)
 #: phases 4e-4i, the configs first served on the card: (label, config,
 #: layers, parameter bytes in bf16 from ``Model.abstract_params``).  The
 #: depth cuts follow dbrx-132b's budget (8 of 40 layers, 53.4 GB): full
@@ -554,6 +588,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
             if dtype == torch.bfloat16 and (S, h, d) == (prompt_max, h2h,
                                                          h2d):
                 errs["flash_h2o"] = e
+        head_dim_sweep(torch, gen, dtype, tol[dtype])
     torch.cuda.synchronize()
 
     # timing at the main path's shapes, bf16
@@ -596,6 +631,51 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         flash_row(torch, F, fa, h2o, errs["flash_h2o"], "h2o-danube-3-4b",
                   window=h2win),
     ]
+
+
+def head_dim_sweep(torch, gen, dtype, tol: float) -> None:
+    """Both kernels against their plain versions at every head_dim
+    ``cuda_build.head_dim_ok`` admits (``SWEEP_HEAD_DIMS``), at small
+    shapes: paged on ``SWEEP_PAGED``'s edge set (a row of length 0, a row
+    ending mid-page before three unmapped columns of garbage pages, a row
+    using every column), flash causal at ``SWEEP_FLASH``'s ragged S.
+    Every value runs before any failure raises, so one run names all the
+    values that fail."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    tag = str(dtype).split(".")[1]
+    if [d for d in range(300) if cuda_build.head_dim_ok(d)] != \
+            list(SWEEP_HEAD_DIMS):
+        raise AssertionError("the sweep's head_dims are not the rule's")
+    B, H, KV, T, MP, lengths = SWEEP_PAGED
+    fB, fS, fH, fKV = SWEEP_FLASH
+    worst = {"paged": 0.0, "flash": 0.0}
+    failed = []
+    for d in SWEEP_HEAD_DIMS:
+        a = paged_inputs(torch, gen, dtype, B, H, KV, d, T, MP, lengths)
+        out = pa.paged_attention_cuda(*a)
+        q, k, v = (torch.randn((fB, fS, h, d), generator=gen,
+                               device="cuda").to(dtype)
+                   for h in (fH, fKV, fKV))
+        for name, got, want in (
+                ("paged", out, pa.paged_attention_plain(*a)),
+                ("flash", fa.flash_attention_cuda(q, k, v),
+                 fa.flash_attention_plain(q, k, v))):
+            err = max_err(got, want)
+            worst[name] = max(worst[name], err)
+            if not (err <= tol and bool(torch.isfinite(got).all())):
+                failed.append(f"{name} hd{d} ({err:.3e})")
+        if bool(out[0].abs().max() != 0):
+            failed.append(f"paged hd{d} (length-0 row not zero)")
+    print(f"  head_dim sweep {tag}, {len(SWEEP_HEAD_DIMS)} values "
+          f"{SWEEP_HEAD_DIMS[0]}..{SWEEP_HEAD_DIMS[-1]}: paged B={B} H={H} "
+          f"KV={KV} T={T} MP={MP} lengths={lengths} max_abs_err="
+          f"{worst['paged']:.3e}; flash B={fB} S={fS} H={fH} KV={fKV} "
+          f"causal max_abs_err={worst['flash']:.3e} (tol {tol:g}); "
+          f"failed: {failed or 'none'}")
+    if failed:
+        raise AssertionError(f"head_dim sweep {tag}: {failed}")
 
 
 def flash_row(torch, F, fa, qkv, err, path, window=None) -> dict:
@@ -766,21 +846,28 @@ def rwkv_kernel_phase(torch, prompt_max):
 
 
 # ----------------------------------------------------------------- phase 3
-def serve(torch, cfg, flags, params, specs, ecfg, device, instrument=None):
+def make_engine(cfg, flags, params, ecfg, device, staged=True):
+    """The serve phases' engine over one LMB expander of 8 GiB (pages of
+    4 KiB); ``staged=False`` (phase 3s) runs the paged step eagerly.
+    Returns (engine, system)."""
     from repro_torch.core import (DeviceSpec, HostSpec, LMBSystem,
                                   SystemSpec)
     from repro_torch.models import build_model
-    from repro_torch.serve import ServeEngine, SubmitSpec
+    from repro_torch.serve import ServeEngine
 
-    model = build_model(cfg, flags, device=device)
-    spec = SystemSpec(expanders=1, pool_gib=8,
-                      hosts=(HostSpec("server", page_bytes=4096),),
-                      devices=(DeviceSpec("gpu0"),))
-    system = LMBSystem(spec)
-    eng = ServeEngine(model, params, system, ecfg, device_id="gpu0",
-                      device=device)
-    if instrument is not None:
-        instrument(eng)
+    system = LMBSystem(SystemSpec(
+        expanders=1, pool_gib=8, hosts=(HostSpec("server", page_bytes=4096),),
+        devices=(DeviceSpec("gpu0"),)))
+    eng = ServeEngine(build_model(cfg, flags, device=device), params, system,
+                      ecfg, device_id="gpu0", device=device, staged=staged)
+    return eng, system
+
+
+def drain(eng, specs):
+    """Submit ``specs`` (prompt, new tokens) and step ``eng`` until it is
+    idle.  Returns (request ids, each round's seconds, wall seconds)."""
+    from repro_torch.serve import SubmitSpec
+
     rids = [eng.submit(SubmitSpec(prompt=p, max_new_tokens=n))
             for p, n in specs]
     rounds = []
@@ -791,7 +878,14 @@ def serve(torch, cfg, flags, params, specs, ecfg, device, instrument=None):
         rounds.append(time.monotonic() - t)
         if len(rounds) > 10000:
             raise AssertionError("engine did not drain")
-    wall = time.monotonic() - t0
+    return rids, rounds, time.monotonic() - t0
+
+
+def serve(torch, cfg, flags, params, specs, ecfg, device, instrument=None):
+    eng, system = make_engine(cfg, flags, params, ecfg, device)
+    if instrument is not None:
+        instrument(eng)
+    rids, rounds, wall = drain(eng, specs)
     return eng, rids, rounds, wall, system
 
 
@@ -879,6 +973,7 @@ def serve_phase(torch, label, cfg, prompts, ecfg, apart=(),
         "mean_ttft_s": st["mean_ttft_s"],
         "mean_round_s": sum(rounds) / len(rounds), "rounds": len(rounds),
         "decode_path": st["decode_path"], "paged_rounds": eng.paged_rounds,
+        "staged": eng.staged.stats() if eng.staged else None,
         "launches": launches, "dispatches": dispatches,
         "lmb_link_bytes": eng.kv.buf.host.fm.op_bytes(),
         "onboard_hits": c.hits, "onboard_misses": c.misses,
@@ -910,6 +1005,12 @@ def check_paged(res, cfg) -> None:
     launches, op_bytes = res["launches"], res["lmb_link_bytes"]
     if res["decode_path"] != "paged" or res["paged_rounds"] <= 0:
         raise AssertionError(f"{cfg.name}: no paged decode round ran")
+    st = res["staged"]
+    if not st or st["captures"] < 1 or st["replays"] < 1 or \
+            st["eager_rounds"] != len(st["rounds"]) or \
+            st["eager_rounds"] + st["replays"] != res["paged_rounds"]:
+        raise AssertionError(f"{cfg.name}: the paged step did not run "
+                             f"through captured graphs: {st}")
     for name in PAGED_KERNELS:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
@@ -937,15 +1038,20 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     decode step; a path's stages that never run stay at 0.  ``apart``
     names model functions, ``(key, module, attribute)``, timed apart inside
     the stage that calls them (the MoE layer, the SSM branch): their
-    seconds are part of that stage's."""
+    seconds are part of that stage's.  Nothing is timed apart inside a
+    staged paged step (``..._in_model_step`` stays 0 there): a replay
+    calls no Python, and a capture must not sync; phase 3s reads the MoE
+    share of a replay from its trace instead."""
     acc = {"prefill": 0.0, "decode_view": 0.0, "model_step": 0.0,
            "commit_decode": 0.0}
     inner = {f"{key}_in_{stage}": 0.0 for key, _, _ in apart
              for stage in ("prefill", "model_step")}
-    stage = [None]
+    stage, staged = [None], [False]
 
     def timed(name, fn, into):
         def run(*args, **kw):
+            if into is not acc and stage[0] == "model_step" and staged[0]:
+                return fn(*args, **kw)    # captured or replayed: no sync
             torch.cuda.synchronize()
             outer, t = stage[0], time.monotonic()
             if into is acc:
@@ -961,6 +1067,7 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
         return run
 
     def instrument(eng):
+        staged[0] = eng.staged is not None
         eng._prefill_fn = timed("prefill", eng._prefill_fn, acc)
         if eng._paged_fn is not None:
             eng._paged_fn = timed("model_step", eng._paged_fn, acc)
@@ -984,6 +1091,10 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     out["other"] = wall - sum(acc.values())
     out["wall_s"] = wall
     out["rounds"] = len(rounds)
+    if eng.staged is not None:
+        # host time of the captures: part of model_step, once per batch
+        # size that recurs in the run
+        out["capture_s_in_model_step"] = eng.staged.capture_s
     if inner:
         out["apart"] = inner
     print("  breakdown (s, summed over the run): " + json.dumps(out))
@@ -1044,6 +1155,331 @@ def serve_phases(torch, lens, news, prompts) -> dict:
         raise AssertionError("hymba's KV never crossed the LMB link")
     free_card(torch)
     return served
+
+
+def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
+    """Phase 3s's work on one engine, eager or staged: ``prompts`` served
+    twice.  The first run is measured as a user meets it (counts reset
+    just before it and read just after; a staged engine runs each batch
+    size's first round eagerly and captures its graph at the second);
+    the second serves the same prompts again with the model step timed
+    per round, the device synchronised around it (a staged engine
+    replays, and captures the batch sizes the first run met once).  A
+    staged engine's replay is then traced (:func:`replay_trace`)."""
+    from repro_torch.core.metrics import GLOBAL_METRICS
+    from repro_torch.kernels import cuda_build, ops
+
+    eng, system = make_engine(cfg, flags, params, ecfg, "cuda", staged)
+
+    def run():
+        rounds0 = eng.paged_rounds
+        rids, _, wall = drain(eng, prompts)
+        torch.cuda.synchronize()
+        reqs = [eng.requests[r] for r in rids]
+        if not all(r.state == "done" for r in reqs):
+            raise AssertionError(f"not all done: {[r.state for r in reqs]}")
+        streams = [list(r.out_tokens) for r in reqs]
+        gen = sum(len(s) for s in streams)
+        return {"streams": streams, "wall_s": wall,
+                "tokens_per_s": gen / wall,
+                "paged_rounds": eng.paged_rounds - rounds0}
+
+    GLOBAL_METRICS.reset()             # the onboard tier's hits and misses
+    cuda_build.reset_launch_counts()
+    calls = ops.dispatch_counts()
+    first = run()
+    tier = eng.kv.buf.metrics.tier(eng.kv.buf.name, "onboard")
+    first.update(
+        launches=cuda_build.launch_counts(),
+        dispatches={k: v - calls[k]
+                    for k, v in ops.dispatch_counts().items()},
+        link_bytes=dict(eng.kv.buf.host.fm.op_bytes()),
+        hits=tier.hits, misses=tier.misses,
+        staged=eng.staged.stats() if eng.staged else None)
+    step_s, capture_s, fn = [], [], eng._paged_fn
+
+    def timed(*args):
+        captures = eng.staged.captures if eng.staged else 0
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        captured = eng.staged is not None and eng.staged.captures > captures
+        (capture_s if captured else step_s).append(time.monotonic() - t)
+        return out
+
+    eng._paged_fn = timed
+    second = run()
+    second["step_ms"] = sorted(x * 1e3 for x in step_s)
+    second["capture_ms"] = [x * 1e3 for x in capture_s]
+    second["staged"] = eng.staged.stats() if eng.staged else None
+    out = {"first": first, "second": second}
+    if eng.staged is not None:
+        out["trace"] = replay_trace(torch, eng, cfg, flags, params)
+    system.close()
+    del eng
+    return out
+
+
+def first_run_tokens_per_s(torch, cfg, flags, params, prompts, ecfg,
+                           staged) -> float:
+    """Tokens/s of ``prompts`` served by a fresh engine, eager or staged
+    (phase 3s's repeated first runs)."""
+    eng, system = make_engine(cfg, flags, params, ecfg, "cuda", staged)
+    rids, _, wall = drain(eng, prompts)
+    torch.cuda.synchronize()
+    tokens = sum(len(eng.requests[r].out_tokens) for r in rids)
+    system.close()
+    return tokens / wall
+
+
+def replay_trace(torch, eng, cfg, flags, params) -> dict:
+    """One replay of a staged engine's graph at its largest batch size B,
+    traced with ``torch.profiler``: its device operations in order (the
+    graph is one stream's capture, so they run in the step's order).
+    Fails unless it holds exactly one ``paged_split_kernel`` and one
+    ``paged_combine_kernel`` a layer: a replay calls no wrapper, so this
+    is what the replayed launch counts rest on.  For an MoE model the
+    MoE layer is found in the same trace: ``moe_apply`` run eagerly at
+    the step's input shape [B, 1, D] is traced on its own, and its
+    sequence of operation names must occur once a layer in the replay's;
+    the matched operations' device time over the replay's is the MoE
+    share, and its GEMM kernels' (``GEMM_KERNELS``: the expert products
+    and the router) the expert share."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import layer
+
+    def device_ops(fn):
+        # the first call is the profiler's warm-up, discarded: a trace's
+        # first operations can be lost while the tracer starts
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own span ("ProfilerStep#1") is not an operation
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep")),
+                     key=lambda e: e.time_range.start)
+        # a fill's or copy's memory kind: "Memset (Device)" when run
+        # eagerly, "Memset (Unknown)" as a graph node
+        return [(e.name.split(" (")[0]
+                 if e.name.startswith(("Memset", "Memcpy")) else e.name,
+                 e.time_range.elapsed_us()) for e in evs]
+
+    B = max(eng.staged.graphs)
+    graph = eng.staged.graphs[B].graph
+    ops_ = device_ops(graph.replay)    # not counted: no wrapper runs
+    names = [n for n, _ in ops_]
+    busy = sum(us for _, us in ops_)
+    L = cfg.num_layers
+    split = sum("paged_split_kernel" in n for n in names)
+    combine = sum("paged_combine_kernel" in n for n in names)
+    out = {"B": B, "ops": len(ops_), "device_ms": busy / 1e3,
+           "paged_split": split, "paged_combine": combine}
+    if (split, combine) != (L, L):
+        raise AssertionError(f"{cfg.name}: the replay ran {split} split and "
+                             f"{combine} combine kernels, not {L} each; "
+                             f"{len(ops_)} operations, first {names[:8]}")
+    if cfg.block_type == MOE:
+        lp = layer(params["trunk"], 0)["moe"]
+        x = torch.randn((B, 1, cfg.d_model), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0)
+                        ).to(dtype_of(cfg))
+        with torch.no_grad():
+            seq = [n for n, _ in device_ops(
+                lambda: moe_mod.moe_apply(lp, cfg, x, flags))]
+        m, at, moe_us, gemm_us = len(seq), 0, 0.0, 0.0
+        hits = 0
+        while at + m <= len(names):
+            if names[at:at + m] == seq:
+                for n, us in ops_[at:at + m]:
+                    moe_us += us
+                    if any(k in n.lower() for k in GEMM_KERNELS):
+                        gemm_us += us
+                hits += 1
+                at += m
+            else:
+                at += 1
+        if hits != L:
+            raise AssertionError(f"{cfg.name}: moe_apply's {m} operations "
+                                 f"occur {hits} times in the replay, not "
+                                 f"{L}; moe_apply: {seq}")
+        out.update(moe_ops_per_layer=m, moe_ms=moe_us / 1e3,
+                   moe_share=moe_us / busy, expert_gemm_share=gemm_us / busy)
+    return out
+
+
+def staged_phase(torch, lens, news, card) -> dict:
+    """Phase 3s: qwen2-1.5b (full) and dbrx-132b (full width, 8 of 40
+    layers) served eager (``staged=False``) and staged, one engine each,
+    the same params and prompts (:func:`staged_run`).  Fails unless the
+    greedy streams, link bytes, onboard hits and misses and launch and
+    dispatch counts are equal, the paged kernel launched layers x rounds,
+    the staged engine ran each batch size's first round eagerly and
+    every later one from a graph, and one replay's trace holds the paged
+    kernels once a layer.  Prints captures and replays, the model step
+    per round and tokens/s, staged beside eager (the first runs of
+    ``FRESH_PAIRS`` fresh engines each), the replay's device time (and
+    for dbrx-132b its MoE share), on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig
+
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    flags = Flags(remat=False, use_kernels=True)
+    dbrx = dataclasses.replace(get_config("dbrx-132b"),
+                               num_layers=DBRX_LAYERS)
+    out = {}
+    for seed, cfg in ((10, get_config("qwen2-1.5b")), (11, dbrx)):
+        left = free_card(torch)
+        if left > 1.0:
+            raise AssertionError(f"{left:.2f} GiB of earlier phases still "
+                                 "on the card")
+        t0 = time.monotonic()
+        prompts = prompts_for(cfg, lens, news, seed)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = build_model(cfg, flags, device="cuda").init(gen)
+        # warm-up: cuBLAS handles, the allocator, both kernels
+        staged_run(torch, cfg, flags, params, [(prompts[0][0][:16], 2)],
+                   ecfg, False)
+        eager, staged = (staged_run(torch, cfg, flags, params, prompts, ecfg,
+                                    s) for s in (False, True))
+        # more fresh engines' first runs, the order alternating: a
+        # first run's tokens/s moves a few per cent between runs
+        fresh = {False: [eager["first"]["tokens_per_s"]],
+                 True: [staged["first"]["tokens_per_s"]]}
+        for k in range(1, FRESH_PAIRS):
+            for s in ((False, True) if k % 2 == 0 else (True, False)):
+                fresh[s].append(first_run_tokens_per_s(
+                    torch, cfg, flags, params, prompts, ecfg, s))
+        del params
+        L = cfg.num_layers
+        e1, s1 = eager["first"], staged["first"]
+        for key in ("streams", "link_bytes", "hits", "misses", "launches",
+                    "dispatches", "paged_rounds"):
+            if e1[key] != s1[key]:
+                raise AssertionError(f"{cfg.name}: staged {key} "
+                                     f"{s1[key]} != eager {e1[key]}")
+        if eager["second"]["streams"] != staged["second"]["streams"]:
+            raise AssertionError(f"{cfg.name}: second runs' streams differ")
+        if s1["launches"].get("paged_attention") != L * s1["paged_rounds"]:
+            raise AssertionError(f"{cfg.name}: paged ran "
+                                 f"{s1['launches']} times, not {L} x "
+                                 f"{s1['paged_rounds']}")
+        st1, st2 = s1["staged"], staged["second"]["staged"]
+        recurring = sum(1 for n in st1["rounds"].values() if n > 1)
+        if st1["eager_rounds"] != len(st1["rounds"]) or \
+                st1["eager_rounds"] + st1["replays"] != \
+                s1["paged_rounds"] or st1["captures"] < recurring or \
+                st2["eager_rounds"] != st1["eager_rounds"] or \
+                st2["replays"] - st1["replays"] != \
+                staged["second"]["paged_rounds"]:
+            raise AssertionError(f"{cfg.name}: captures and replays {st1} "
+                                 f"then {st2}")
+        tr = staged["trace"]
+
+        def ms(xs):
+            return (f"median {_pct(xs, 50):.3f} ms, mean "
+                    f"{sum(xs) / len(xs):.3f} ms over {len(xs)}")
+        med = {s: _pct(xs, 50) for s, xs in fresh.items()}
+        first_ratio = med[True] / med[False]
+        ahead = sum(a > b for a, b in zip(fresh[True], fresh[False]))
+        print(f"phase 3s: {cfg.name}, {L} layers, eager and staged: equal "
+              f"streams, link bytes {s1['link_bytes']}, hits {s1['hits']}, "
+              f"misses {s1['misses']}, launches {s1['launches']}; batch "
+              f"sizes {st1['rounds']}: first run {st1['eager_rounds']} "
+              f"eager rounds (each batch size's first), {st1['captures']} "
+              f"captures ({st1['capture_s']:.3f} s of host time), "
+              f"{st1['replays']} replays; second run "
+              f"{st2['captures'] - st1['captures']} captures, "
+              f"{st2['replays'] - st1['replays']} replays; pool buffer "
+              f"{st2['pool_pages']} pages after {st2['regrowths']} "
+              f"regrowths")
+        print(f"  first run tokens/s, {FRESH_PAIRS} fresh engines each, "
+              f"the order alternating: eager "
+              f"{[round(x, 1) for x in fresh[False]]}, staged "
+              f"{[round(x, 1) for x in fresh[True]]} (captures included); "
+              f"medians staged/eager {first_ratio:.3f}, staged ahead in "
+              f"{ahead} of {FRESH_PAIRS} pairs; second run: eager "
+              f"{eager['second']['tokens_per_s']:.1f}, staged "
+              f"{staged['second']['tokens_per_s']:.1f}")
+        print(f"  model step per round (second run, synchronised): eager "
+              f"{ms(eager['second']['step_ms'])}; staged replays "
+              f"{ms(staged['second']['step_ms'])}, capture rounds "
+              f"{[round(x, 3) for x in staged['second']['capture_ms']]} ms")
+        moe = (f"; MoE {tr['moe_ms']:.3f} ms, {tr['moe_ops_per_layer']} "
+               f"operations a layer, share {tr['moe_share']:.3f}, expert "
+               f"GEMMs' share {tr['expert_gemm_share']:.3f}"
+               if "moe_ms" in tr else "")
+        print(f"  replay at B={tr['B']} traced: {tr['ops']} device "
+              f"operations, {tr['paged_split']} paged_split_kernel and "
+              f"{tr['paged_combine']} paged_combine_kernel, device time "
+              f"{tr['device_ms']:.3f} ms{moe}; on {card}; "
+              f"{time.monotonic() - t0:.1f} s")
+        out[cfg.name] = {"eager": eager, "staged": staged}
+    free_card(torch)
+    return out
+
+
+def sync_refusal_phase(torch) -> None:
+    """Phase 9, last (a failed capture leaves the stream it captured on
+    in no state to trust): a host sync injected into the staged paged
+    step (reduced qwen2-1.5b, one request, so B = 1 every round) runs in
+    the eager first round and must make the engine raise at the second
+    round's capture, with no graph made and no eager round run in its
+    place."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import system_for
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
+    import numpy as np
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    model = build_model(cfg, Flags(remat=False, use_kernels=True),
+                        device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ServeEngine(model, params, system_for("gpu0", host_id="h0",
+                                                pool_gib=1, page_bytes=4096),
+                      EngineConfig(decode_slots=2, max_seq_len=64,
+                                   page_tokens=8, onboard_pages=8),
+                      device_id="gpu0", device="cuda")
+    step = eng.staged.step
+
+    def syncing(params, pool, page_table, lengths, token):
+        int(lengths.max())                  # a host sync
+        return step(params, pool, page_table, lengths, token)
+
+    eng.staged.step = syncing
+    eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
+                          max_new_tokens=4))
+    try:
+        eng.run(10)
+    except RuntimeError as exc:
+        msg = str(exc).splitlines()[0][:160]
+    else:
+        raise AssertionError("a host sync inside the staged step did not "
+                             "raise")
+    if eng.staged.captures or eng.paged_rounds != 1 or \
+            eng.staged.eager_rounds != 1:
+        raise AssertionError(f"captures {eng.staged.captures}, paged rounds "
+                             f"{eng.paged_rounds}, eager rounds "
+                             f"{eng.staged.eager_rounds} after a failed "
+                             "capture")
+    print(f"phase 9: a host sync in the staged step ran in the eager first "
+          f"round and raised at the second round's capture ({msg}); no "
+          f"graph, no eager round in its place")
 
 
 def ring_check(cfg, req) -> dict:
@@ -2093,6 +2529,7 @@ def main(argv=None) -> int:
     kernels = kernel_phase(torch, serve_lengths, max(lens))
     kernels.append(rwkv_kernel_phase(torch, max(lens)))
     served = serve_phases(torch, lens, news, prompts)
+    staged_phase(torch, lens, news, card)
     seamless = seamless_phase(torch)
     served.update(new_serve_phases(torch, lens, news))
     swept = sweep_phase(torch, card)
@@ -2164,6 +2601,7 @@ def main(argv=None) -> int:
           f"{[round(x, 4) for x in trained['losses']]}; state on the "
           f"card: step {profiled['wall_ms']:.1f} ms, device busy "
           f"{profiled['busy_ms']:.1f} ms on {card}")
+    sync_refusal_phase(torch)
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -990,15 +990,22 @@ class LinkedBuffer:
         if hasattr(self.policy, "mark_dirty"):
             self.policy.mark_dirty(page, True)
 
-    def read_many(self, pages: Sequence[int]) -> torch.Tensor:
+    def read_many(self, pages: Sequence[int],
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Batched :meth:`read`: fault the pages in with coalesced
         per-chunk transfers and bulk eviction, then return them stacked
         ``[len(pages), *page_shape]`` via one gather against the onboard
         pool.  Duplicates allowed.  Batches larger than the onboard tier
-        are served in capacity-sized waves."""
+        are served in capacity-sized waves.  ``out`` (the port's own
+        addition) is an onboard tensor of that shape the pages are
+        gathered into, and is returned."""
         pages = list(pages)
+        if out is not None and tuple(out.shape) != (len(pages),
+                                                    *self.page_shape):
+            raise ValueError(f"{self.name}: out shape {tuple(out.shape)} "
+                             f"!= {(len(pages), *self.page_shape)}")
         if not pages:
-            return self._zeros((0, *self.page_shape))
+            return self._zeros((0, *self.page_shape)) if out is None else out
         order = list(dict.fromkeys(pages))
         if len(order) == 1:
             # a 1-page "burst" IS the scalar path (same bytes, same
@@ -1007,13 +1014,15 @@ class LinkedBuffer:
             # scalar dispatch cost
             data = self.read(order[0])
             self._record_dup_hits(order[0], len(pages) - 1)
+            if out is not None:
+                return out.copy_(data.expand_as(out))
             if len(pages) == 1:
                 return data[None]
             return torch.stack([data] * len(pages))
         if self._single_wave_fits(order):
             slotmap = self._fault_in_many(pages)
             return self.executor.read_pages(
-                self._onboard_pool, [slotmap[p] for p in pages])
+                self._onboard_pool, [slotmap[p] for p in pages], out=out)
         # batch exceeds the batch-usable onboard capacity: wave through,
         # capturing each wave's data before the next wave may evict it
         datas: Dict[int, torch.Tensor] = {}
@@ -1023,7 +1032,7 @@ class LinkedBuffer:
                 self._onboard_pool, [slotmap[p] for p in wave])
             for j, p in enumerate(wave):
                 datas[p] = arr[j]
-        return torch.stack([datas[p] for p in pages])
+        return torch.stack([datas[p] for p in pages], out=out)
 
     def write_many(self, pages: Sequence[int], data) -> None:
         """Batched :meth:`write`: ``data[i]`` -> ``pages[i]`` with one

@@ -246,21 +246,22 @@ class TierExecutor:
     # One gather/scatter against the pool instead of N slice copies, and
     # the meter hook (when bound) sees ONE charge for the burst's bytes.
 
-    def read_pages(self, pool: torch.Tensor,
-                   slots: Sequence[int]) -> torch.Tensor:
-        """Coalesced read: ``[len(slots), *page_shape]`` stacked onboard.
-        Duplicate slots are allowed (a gather may repeat pages)."""
+    def read_pages(self, pool: torch.Tensor, slots: Sequence[int],
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Coalesced read: ``[len(slots), *page_shape]`` stacked onboard
+        (into ``out`` if given).  Duplicate slots are allowed (a gather
+        may repeat pages)."""
         self._meter(pool, self._page_bytes(pool) * len(slots))
         tr = self.trace
         if tr.enabled:
             with tr.span("exec.read_pages", op="demand",
                          nbytes=self._page_bytes(pool) * len(slots),
                          pages=len(slots), tier=self.tier_of(pool)):
-                return self._read_pages(pool, slots)
-        return self._read_pages(pool, slots)
+                return self._read_pages(pool, slots, out)
+        return self._read_pages(pool, slots, out)
 
-    def _read_pages(self, pool: torch.Tensor,
-                    slots: Sequence[int]) -> torch.Tensor:
+    def _read_pages(self, pool: torch.Tensor, slots: Sequence[int],
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
         idx = torch.as_tensor(list(slots), dtype=torch.long)
         if pool.device.type == "cpu" and self.real_host_tier:
             # gather into pinned staging so the host->device copy is a
@@ -269,9 +270,14 @@ class TierExecutor:
             staging = torch.empty((len(slots), *pool.shape[1:]),
                                   dtype=pool.dtype, pin_memory=True)
             torch.index_select(pool, 0, idx, out=staging)
+            if out is not None:
+                return out.copy_(staging, non_blocking=True)
             return staging.to(self.device, non_blocking=True)
         # index_select allocates: the result never aliases the pool
-        return pool.index_select(0, idx.to(pool.device))
+        idx = idx.to(pool.device)
+        if out is not None:
+            return torch.index_select(pool, 0, idx, out=out)
+        return pool.index_select(0, idx)
 
     def write_pages(self, pool: torch.Tensor, slots: Sequence[int],
                     pages: torch.Tensor) -> torch.Tensor:

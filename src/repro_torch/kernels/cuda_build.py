@@ -9,8 +9,9 @@ rebuilt whenever the source or a header changes.  Nothing here
 runs at import time: the CPU tests import every module of the port.
 
 Each kernel wrapper counts its launches in :data:`LAUNCHES` (one per
-launch, nowhere else), so a run can show that its main path went through
-the kernels.
+launch, nowhere else; a CUDA graph's replay adds the launches its capture
+recorded, :func:`add_launches`), so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +52,14 @@ def count_launch(name: str) -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add a CUDA graph's launches per replay (``serve/staged.py``: a
+    replay runs the kernels its capture recorded without calling their
+    wrappers), or, negated, take back the capture's, which ran none."""
+    for name, n in counts.items():
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + n
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,13 @@ def dispatch_counts() -> Dict[str, int]:
     return dict(_calls)
 
 
+def add_dispatches(counts: Dict[str, int]) -> None:
+    """Add a CUDA graph's dispatcher calls per replay, or, negated, take
+    back its capture's (``cuda_build.add_launches`` for the kernels)."""
+    for name, n in counts.items():
+        _calls[name] += n
+
+
 def refuse_autograd(name: str, plain: str, *tensors) -> None:
     """Raise if grad mode is on and any of ``tensors`` requires grad: the
     CUDA kernel ``name`` has no backward."""

@@ -439,15 +439,41 @@ def _folded_matmul(x, w):
     return (x.flatten(0, -2) @ w).unflatten(0, x.shape[:-1])
 
 
+def _summed(out):
+    """``out``, a product that contracted a sharded dim (or a vocab
+    lookup), with its partial sums all-reduced where it is made, as XLA's
+    SPMD partitioner does.  DTensor defers the sum, and then every
+    consumer that needs it reduces a copy of its own: ``rms_norm``'s
+    ``xf * xf`` all-reduces the residual stream twice, in f32, and each
+    projection of a partial input once more.  None where ``out`` holds no
+    partial sum, or where autograd would differentiate it (a training
+    step keeps DTensor's own placements)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(out, DTensor) or \
+            (out.requires_grad and torch.is_grad_enabled()) or \
+            not any(isinstance(p, Partial) for p in out.placements):
+        return None
+    return out.redistribute(out.device_mesh, [
+        Replicate() if isinstance(p, Partial) else p
+        for p in out.placements])
+
+
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+#: the products whose partial sums :func:`_summed` reduces at once
+_PRODUCTS = _MATMULS + (torch.einsum,)
+
+
 class ShardedRules(TorchFunctionMode):
     """The dry run's rules for ops that DTensor shards badly: a write into
     a slot of a sharded dim (:func:`_masked_setitem`), a vocab-sharded
     lookup (:func:`_vocab_lookup`), a gather along a sharded dim
     (:func:`_vocab_gather`), a softmax along one
-    (:func:`_sharded_softmax`) and a matmul that does not fold
-    (:func:`_folded_matmul`).  Each use is counted in ``rewrites``; the
-    collectives a rule needs are issued as DTensor redistributions, so the
-    step counter records them like any other."""
+    (:func:`_sharded_softmax`), a matmul that does not fold
+    (:func:`_folded_matmul`) and a partial sum left for its consumers
+    (:func:`_summed`, after a product or a vocab lookup).  Each use is
+    counted in ``rewrites``; the collectives a rule needs are issued as
+    DTensor redistributions, so the step counter records them like any
+    other."""
 
     def __init__(self):
         super().__init__()
@@ -455,6 +481,13 @@ class ShardedRules(TorchFunctionMode):
 
     def _note(self, kind: str) -> None:
         self.rewrites[kind] = self.rewrites.get(kind, 0) + 1
+
+    def _sum(self, out):
+        summed = _summed(out)
+        if summed is None:
+            return out
+        self._note("partial_sum")
+        return summed
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -466,24 +499,24 @@ class ShardedRules(TorchFunctionMode):
             out = _vocab_lookup(*args)
             if out is not None:
                 self._note("vocab_lookup")
-                return out
+                return self._sum(out)
         elif func in (torch.gather, torch.Tensor.gather) and not kwargs:
             out = _vocab_gather(*args)
             if out is not None:
                 self._note("vocab_gather")
                 return out
-        elif func in (torch.matmul, torch.Tensor.matmul,
-                      torch.Tensor.__matmul__) and not kwargs:
+        elif func in _MATMULS and not kwargs:
             out = _folded_matmul(*args)
             if out is not None:
                 self._note("folded_matmul")
-                return out
+                return self._sum(out)
         elif func in (torch.softmax, torch.Tensor.softmax):
             out = _sharded_softmax(*args, **kwargs)
             if out is not None:
                 self._note("sharded_softmax")
                 return out
-        return func(*args, **kwargs)
+        out = func(*args, **kwargs)
+        return self._sum(out) if func in _PRODUCTS else out
 
 
 def opt_state_shardings(opt_shapes, mesh, cfg, fsdp=False):
@@ -660,11 +693,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             shape, mesh, flags) for n in (1, 2))
         body = {k: two[k] - one[k] for k in ("flops", "bytes", "coll")}
         terms = roofline_of(art, cfg, shape, chips)
+        kinds = [collective_bytes_per_device(m["collectives"])
+                 for m in (art, one, two)]
         rec.update(status="ok", trace_s=round(art["trace_s"], 2),
                    ops=art["ops"], rewrites=art["rewrites"],
                    raw_artifact={k: art[k] for k in ("flops", "bytes",
                                                      "coll")},
-                   body_per_layer=body, roofline=terms.row())
+                   body_per_layer=body, roofline=terms.row(),
+                   coll_by_kind={"step": kinds[0], "body_per_layer": {
+                       k: kinds[2].get(k, 0.0) - kinds[1].get(k, 0.0)
+                       for k in {**kinds[1], **kinds[2]}}})
         if verbose:
             r = terms
             m = rec["memory"]

@@ -17,11 +17,14 @@ through it — ADMIT seats the request, THROTTLE leaves it queued for a
 later round, SHED rejects it outright (state "shed").  Completed request
 latencies feed the tenant's SLO tracker, closing the loop.
 
-PyTorch port of ``repro.serve.engine``: eager torch replaces ``jax.jit``,
-greedy argmax runs on the device with one host sync per round, and the
-engine runs on the model's device (CUDA unless built with
-``device="cpu"``).  The deprecated positional ``submit(prompt, ...)``
-shim is not ported: ``submit`` takes a :class:`SubmitSpec`.
+PyTorch port of ``repro.serve.engine``: where the reference stages the
+paged decode step with ``jax.jit``, the port captures it as one CUDA
+graph per batch size (``serve/staged.py``; ``staged=False`` runs it
+eagerly), and prefill and the dense slot step run eagerly; greedy argmax
+runs on the device with one host sync per round, and the engine runs on
+the model's device (CUDA unless built with ``device="cpu"``).  The
+deprecated positional ``submit(prompt, ...)`` shim is not ported:
+``submit`` takes a :class:`SubmitSpec`.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from repro_torch.models.zoo import Model
 from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, SpanTracer
 from repro_torch.qos.slo import AdmissionController, Decision
 from repro_torch.serve.kv_cache import PagedKVStore
+from repro_torch.serve.staged import StagedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,7 +187,7 @@ class ServeEngine:
                  ecfg: EngineConfig, device_id: str = "gpu0",
                  qos: Optional[AdmissionController] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 device="cuda"):
+                 device="cuda", staged: bool = True):
         check_servable(model.cfg)
         host = lmb.host() if isinstance(lmb, LMBSystem) else lmb
         self.device = resolve_device(device)
@@ -242,9 +246,21 @@ class ServeEngine:
         #: slot cache for decode); dense stays for uncovered archs
         self._use_paged = (ecfg.paged_decode
                            and model.supports_paged_decode())
-        self._paged_fn = (model.decode_step_paged
-                          if self._use_paged else None)
         self._max_pages = -(-ecfg.max_seq_len // ecfg.page_tokens)
+        #: the paged step staged as the reference's jax.jit stages it: one
+        #: CUDA graph per batch size (static buffers alone on the CPU);
+        #: ``staged=False`` runs it eagerly, for comparison on the card
+        self.staged: Optional[StagedStep] = None
+        self._paged_fn = None
+        if self._use_paged:
+            self._paged_fn = model.decode_step_paged
+            if staged:
+                self.staged = self._paged_fn = StagedStep(
+                    model.decode_step_paged, slots=ecfg.decode_slots,
+                    max_pages=self._max_pages,
+                    page_shape=self.kv.buf.page_shape,
+                    dtype=self.kv.buf.dtype, min_pages=ecfg.onboard_pages,
+                    device=self.device)
         self.paged_rounds = 0
 
     # -------------------------------------------------------------- intake
@@ -594,8 +610,9 @@ class ServeEngine:
             live.append((slot, req))
         if live:
             try:
-                view = self.kv.decode_view([r.seq_id for _, r in live],
-                                           self._max_pages)
+                view = self.kv.decode_view(
+                    [r.seq_id for _, r in live], self._max_pages,
+                    into=self.staged.rows if self.staged else None)
                 toks = torch.tensor([[r.out_tokens[-1]] for _, r in live],
                                     dtype=torch.int32, device=self.device)
                 logits, pool = self._paged_fn(

@@ -24,7 +24,7 @@ memory; on the CPU both are CPU tensors (modelling mode).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -294,7 +294,9 @@ class PagedKVStore:
             seq.pages.extend(self.buf.append_pages(1))
         return seq.pages[idx]
 
-    def decode_view(self, sids: List[int], max_pages: int) -> DecodeView:
+    def decode_view(self, sids: List[int], max_pages: int,
+                    into: Optional[Callable[[int], torch.Tensor]] = None
+                    ) -> DecodeView:
         """Build one round's batched decode view: tail pages guaranteed,
         the union of the active sequences' pages faulted onboard with ONE
         coalesced ``read_many`` burst (metered exactly like any other
@@ -302,7 +304,9 @@ class PagedKVStore:
         only for LMB misses, waves when the union exceeds onboard
         capacity), and page tables rewritten into pool-index space for
         the compiled step.  Active sequences must not share a tail page
-        (the engine never forks a mid-flight sequence)."""
+        (the engine never forks a mid-flight sequence).  ``into(n)``, if
+        given, returns the ``[n, *page_shape]`` rows the union is gathered
+        into (the staged step's pool buffer, ``serve/staged.py``)."""
         for sid in sids:
             self.ensure_tail_page(sid)
         tables, lengths = self.page_tables(sids, max_pages)
@@ -313,7 +317,8 @@ class PagedKVStore:
                 if p not in index:
                     index[p] = len(union)
                     union.append(p)
-        pool = self.buf.read_many(union)       # [n, L, 2, T, KV, hd]
+        pool = self.buf.read_many(              # [n, L, 2, T, KV, hd]
+            union, out=into(len(union)) if into else None)
         pool_tables = np.full_like(tables, -1)
         mapped = tables >= 0
         pool_tables[mapped] = [index[p] for p in tables[mapped].tolist()]

@@ -4,8 +4,11 @@ Argument bytes of every (config, shape, production mesh) cell from the
 port's specs equal the reference's shard arithmetic.  The traced
 qwen2-1.5b × decode_32k × single cell gives the reference's argument
 bytes (952,277,028 per device), model FLOPs and, but for what XLA keeps
-that the port does not, its output bytes; its other figures are printed
-beside the reference's (``pytest -s``), and the reference's temporary
+that the port does not, its output bytes; its collectives, kind by kind,
+equal those XLA's SPMD partitioner issues, and the compiled HLO's exceed
+them by the CPU backend's widening of bf16 collectives, exactly.  Its
+other figures are printed beside the reference's (``pytest -s``), and
+the reference's temporary
 bytes are shown to grow with depth where the port's peak does not.  The
 reference side runs
 in a subprocess: ``repro.launch.dryrun`` forces 512 host devices when it
@@ -34,17 +37,27 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 #: step counter as a device int32 (the port keeps it a host int) and the
 #: output tuple's index table, 8 B a leaf (logits, step, k, v, pos)
 XLA_ONLY_OUTPUT = 4 + 8 * 5
+#: what XLA's CPU backend adds to the decode step's collectives after SPMD
+#: partitioning, per device and weighted: its ``all-reduce-promotion`` and
+#: ``float-normalization-bf16`` passes run each bf16 collective in f32, at
+#: twice the bytes.  The partitioner's bf16 collectives are the ones the
+#: port issues; every other kind is equal
+CPU_WIDENING = {"step": {"all-reduce": 2_801_664, "all-gather": 2_433_024},
+                "body_per_layer": {"all-reduce": 98_304}}
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
 MESHES = {"single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
 
 REFERENCE = r'''
-import dataclasses, json, math, sys
+import dataclasses, glob, json, math, sys, tempfile
 import jax
 from repro.launch import dryrun as d
 from jax.sharding import AbstractMesh, AxisType, NamedSharding
 from repro.configs.base import SHAPES, get_config, list_configs
 from repro.models.flags import Flags
 from repro.models.zoo import build_model
+from repro.roofline.analysis import _TRAFFIC_FACTOR, parse_collectives
 from repro.sharding.partition import (batch_spec, cache_shardings,
                                       param_shardings)
 from repro.train.loop import abstract_train_state
@@ -61,7 +74,37 @@ d.make_production_mesh = auto_mesh
 rec = d.run_cell("qwen2-1.5b", "decode_32k", "single", verbose=False)
 out = {"run_cell": {k: rec.get(k) for k in ("status", "memory",
                                             "body_per_layer", "roofline")},
-       "depth": {}, "bytes": {}}
+       "depth": {}, "bytes": {}, "collectives": {}}
+
+
+def by_kind(hlo):
+    got = dict.fromkeys(_TRAFFIC_FACTOR, 0.0)
+    for kind, n in parse_collectives(hlo):
+        got[kind] += n * _TRAFFIC_FACTOR[kind]
+    return got
+
+
+# run_cell's three compiles again, each collective kind apart: in the
+# compiled HLO (what run_cell counts) and in the HLO right after SPMD
+# partitioning, before the CPU backend's own passes
+qwen = get_config("qwen2-1.5b")
+for name, L, flags in (("full", qwen.num_layers, Flags()),
+                       ("scan2", 2, Flags()),
+                       ("unroll2", 2, Flags(unroll_layers=True))):
+    fn, args = d.build_cell(dataclasses.replace(qwen, num_layers=L),
+                            SHAPES["decode_32k"], auto_mesh(), flags)
+    with tempfile.TemporaryDirectory() as tmp:
+        with d.activation_mesh(auto_mesh() if flags.act_constraints
+                               else None):
+            lowered = fn.lower(*args)
+        compiled = lowered.compile(compiler_options={
+            "xla_dump_to": tmp,
+            "xla_dump_hlo_pass_re": "spmd-partitioning"})
+        [part] = glob.glob(f"{tmp}/*after_spmd-partitioning*")
+        with open(part) as f:
+            out["collectives"][name] = {
+                "compiled": by_kind(compiled.as_text()),
+                "partitioned": by_kind(f.read())}
 # the compiled step's memory at depth 1 and 2 (the layers in one scan)
 for L in (1, 2):
     out["depth"][L] = d._measure(
@@ -179,6 +222,52 @@ def test_traced_cell_gives_the_reference_bytes_and_flops(reference,
                         "body_per_layer", "roofline"}
     assert rec["roofline"]["dominant"] == "memory"
     assert rec["roofline"]["chips"] == 256
+
+
+def _reference_kinds(reference, hlo: str) -> dict:
+    """The reference's weighted bytes per kind, whole step (full-depth
+    scan plus L - 1 bodies, as its ``run_cell`` counts) and per layer
+    (unrolled minus scanned at depth 2)."""
+    got = {name: rec[hlo] for name, rec in reference["collectives"].items()}
+    body = {k: got["unroll2"][k] - got["scan2"][k] for k in KINDS}
+    layers = get_config("qwen2-1.5b").num_layers
+    return {"step": {k: got["full"][k] + (layers - 1) * body[k]
+                     for k in KINDS},
+            "body_per_layer": body}
+
+
+def test_collectives_kind_by_kind_are_the_partitioners(reference,
+                                                       cli_table):
+    """Each kind of collective in the port's decode step, whole and per
+    layer, equals what XLA's SPMD partitioner issues; the compiled HLO
+    holds more by ``CPU_WIDENING`` exactly.  The port reduces a partial
+    sum where its product makes it (``dryrun._summed``), as the
+    partitioner does; before that rule its step moved 1.87× the compiled
+    bytes."""
+    rec = _port_record(cli_table)
+    port = {scope: {k: rec["coll_by_kind"][scope].get(k, 0.0)
+                    for k in KINDS}
+            for scope in ("step", "body_per_layer")}
+    compiled = _reference_kinds(reference, "compiled")
+    part = _reference_kinds(reference, "partitioned")
+    print("\ncollectives, weighted bytes per device: reference compiled, "
+          "reference after SPMD partitioning, port")
+    for scope in port:
+        for k in KINDS:
+            print(f"  {scope} {k}: {compiled[scope][k]:,.0f}, "
+                  f"{part[scope][k]:,.0f}, {port[scope][k]:,.0f}")
+    ref = reference["run_cell"]
+    assert sum(compiled["step"].values()) == \
+        ref["roofline"]["coll_bytes_per_dev"]
+    assert sum(compiled["body_per_layer"].values()) == \
+        ref["body_per_layer"]["coll"]
+    assert port == part
+    assert sum(port["step"].values()) == rec["roofline"]["coll_bytes_per_dev"]
+    for scope in port:
+        assert {k: compiled[scope][k] - part[scope][k] for k in KINDS} == \
+            {k: CPU_WIDENING[scope].get(k, 0) for k in KINDS}
+    assert rec["rewrites"]["partial_sum"] == \
+        1 + 2 * get_config("qwen2-1.5b").num_layers
 
 
 def test_reference_temp_grows_with_depth_where_the_port_peak_does_not(

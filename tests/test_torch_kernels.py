@@ -405,14 +405,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: every head_dim ``cuda_build.head_dim_ok`` admits
+HEAD_DIMS = tuple(range(16, 257, 8))
+
+
+def test_swept_head_dims_are_the_rule():
+    assert HEAD_DIMS == tuple(d for d in range(300)
+                              if cuda_build.head_dim_ok(d))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
+def test_cuda_kernels_match_plain(cuda_device, dtype, tol, hd):
     """On the card: both kernels against their plain versions (bf16 is
     looser: the paged plain version rounds p to bf16 and the kernel does
     not; the flash kernel rounds p to bf16 and its plain version does
-    not).  Paged on the split plan's edges (rows ending inside a split of
+    not), at every head_dim the rule admits: paged at B 3, 2 KV heads of
+    2 query heads, T 8, MP 5 on a row of length 0, a row ending mid-page
+    before three unmapped columns of garbage pages and a row using every
+    column; flash causal at S 70 (a ragged tail).  In the hd 128 case,
+    once per dtype, the sets that do not sweep head_dim: paged on the
+    split plan's edges (rows ending inside a split of
     two pages, trailing empty splits, every page live, MP = 13 over 7
     splits, B = 1 at 16 pages), at head_dim 120 on length 0, lengths on
     a page boundary and unmapped pages holding garbage, and at granite's
@@ -421,6 +436,27 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol):
     the 128 instantiation), a non-causal case and h2o-danube-3-4b's
     prefill (32 over 8 heads, head_dim 120, window 4096) at S 256 and
     4,200, where the window cuts."""
+    q, kp, vp, table, lens = (t.to(cuda_device) for t in _torch(
+        *_paged_inputs(hd, 3, 4, 2, hd, 9, 8, [0, 13, 40],
+                       [[-1] * 5, [6, 0, -1, -1, -1], [2, 5, 1, 4, 3]])))
+    kp[7:] = 1e4                           # never mapped: must not leak
+    vp[7:] = -1e4
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    got = paged_attention_cuda(q, kp, vp, table, lens)
+    torch.testing.assert_close(
+        got.float(), paged_attention_plain(q, kp, vp, table, lens).float(),
+        rtol=tol, atol=tol)
+    assert not got[0].any()
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, k, v = (torch.randn(1, 70, h, hd, generator=g,
+                           device=cuda_device).to(dtype) for h in (4, 2, 2))
+    got = flash_attention_cuda(q, k, v)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v).float(), rtol=tol,
+        atol=tol)
+    if hd != 128:
+        return
     for seed, (B, MP, T, lengths) in enumerate((
             (3, 4, 8, None),
             (16, 16, 8, [128, 9, 0, 1] * 3 + [120, 23, 16, 2]),
