@@ -67,6 +67,20 @@ Phases (any failure raises and the script exits non-zero):
      fresh engines' first runs each, staged over eager); one replay
      traced with ``torch.profiler`` must hold one paged split and one
      combine kernel a layer, and gives dbrx-132b's MoE share of it;
+  3d. the dense slot path (each request alone at B = 1 against its own
+     cache) likewise: rwkv6-7b and h2o-danube-3-4b at full width and
+     depth, phase 3's prompt lengths, served eager and staged (one CUDA
+     graph per decode slot), each engine twice: equal streams, link
+     bytes, hits and misses, launch and dispatch counts (``rwkv6_scan`` or
+     flash layers x prompts, paged none); each slot's first step eager,
+     its second captured and every later one replayed, and the second
+     run captures nothing; prints the model step per decode step eager
+     beside replayed, first-run tokens/s of two fresh pairs of engines
+     and one slot replay's traced device time and operation count;
+  Every dense slot serve phase (4, 4c, 4e, 4i, and phase 5's dense
+     configs on the card) runs the engine as it comes, staged, and fails
+     unless each slot's first step ran eagerly, its second captured and
+     every later one replayed;
   4. serve rwkv6-7b: full width in bf16 with the kernels on, the same 8
      prompt lengths, its recurrent state in each request's dense slot (no
      KV, so no LMB traffic, by the reference's design); one scan launch
@@ -160,10 +174,11 @@ Phases (any failure raises and the script exits non-zero):
      predicted peak must lie within 10 % (decode) and 20 % (train) of the
      rise in ``torch.cuda.max_memory_allocated()`` over the step; each
      prints the measured step time beside the roofline's and their ratio.
-  9. last: a host sync injected into the staged paged step (reduced
-     qwen2-1.5b) must make the engine raise at capture (the second
-     round at a batch size), with no graph made and no eager round run
-     instead.
+  9. last: a host sync injected into the staged dense slot step (reduced
+     h2o-danube-3-4b), then into the staged paged step (reduced
+     qwen2-1.5b), must make the engine raise at capture (a slot's second
+     step, the second round at a batch size), with no graph made and no
+     eager step run instead.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
@@ -178,6 +193,12 @@ times the paged, flash and WKV6 scan wrappers of another checkout of the
 port (for example the parent commit, unpacked with ``git archive``) and of
 this one at the main path's bf16 shapes, both ways, in four fresh
 processes (other, this, this, other), and prints one JSON line per turn.
+
+    python3 chip_smoke.py --dense-staged hymba-1.5b,mixtral-8x22b
+
+builds the kernels and runs phase 3d alone for the configs named (of
+rwkv6-7b, h2o-danube-3-4b, hymba-1.5b and mixtral-8x22b at 10 of its 56
+layers), and prints no result line.
 """
 
 from __future__ import annotations
@@ -223,6 +244,14 @@ H2O_LONG = (4200, 64)
 #: phase 3s: fresh engines, eager and staged, whose first runs' tokens/s
 #: are compared in pairs, the order alternating
 FRESH_PAIRS = 3
+#: phase 3d: the dense slot configs served eager and staged, each with its
+#: depth (``None``: full) and prompts' seed, and fresh engines' pairs; the
+#: ones ``--dense-staged`` may name besides (mixtral-8x22b at phase 4i's
+#: depth)
+DENSE_STAGED = {"rwkv6-7b": (None, 12), "h2o-danube-3-4b": (None, 13),
+                "hymba-1.5b": (None, 14), "mixtral-8x22b": (10, 15)}
+DENSE_STAGED_RUN = ("rwkv6-7b", "h2o-danube-3-4b")
+DENSE_FRESH_PAIRS = 2
 #: phase 3s: name parts of cuBLAS's GEMM kernels on Hopper (nvjet),
 #: CUTLASS's and older cuBLAS's
 GEMM_KERNELS = ("nvjet", "gemm", "xmma")
@@ -1019,6 +1048,19 @@ def check_paged(res, cfg) -> None:
                              "link")
 
 
+def check_slots(res, cfg) -> None:
+    """The dense slot path staged: each slot's first step ran eagerly, its
+    second was captured, and every later one replayed."""
+    st = res["staged"]
+    steps = list(st["steps"].values()) if st else []
+    if not st or res["decode_path"] != "dense" or st["replays"] < 1 or \
+            st["eager_steps"] != len(steps) or \
+            st["captures"] != sum(n > 1 for n in steps) or \
+            st["replays"] != sum(steps) - len(steps):
+        raise AssertionError(f"{cfg.name}: the dense slot step did not run "
+                             f"through captured graphs: {st}")
+
+
 def check_counts(res, cfg, want) -> None:
     """Launch (kernels) and call (dispatchers) counts of the measured run
     against ``want``: {name: count}."""
@@ -1039,9 +1081,9 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     names model functions, ``(key, module, attribute)``, timed apart inside
     the stage that calls them (the MoE layer, the SSM branch): their
     seconds are part of that stage's.  Nothing is timed apart inside a
-    staged paged step (``..._in_model_step`` stays 0 there): a replay
-    calls no Python, and a capture must not sync; phase 3s reads the MoE
-    share of a replay from its trace instead."""
+    staged step, paged or dense slot (``..._in_model_step`` stays 0
+    there): a replay calls no Python, and a capture must not sync; phases
+    3s and 3d read the MoE share of a replay from its trace instead."""
     acc = {"prefill": 0.0, "decode_view": 0.0, "model_step": 0.0,
            "commit_decode": 0.0}
     inner = {f"{key}_in_{stage}": 0.0 for key, _, _ in apart
@@ -1067,6 +1109,7 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
         return run
 
     def instrument(eng):
+        # the staged step of either path: the paged one or the slots'
         staged[0] = eng.staged is not None
         eng._prefill_fn = timed("prefill", eng._prefill_fn, acc)
         if eng._paged_fn is not None:
@@ -1125,6 +1168,7 @@ def serve_phases(torch, lens, news, prompts) -> dict:
         dataclasses.replace(ecfg, onboard_pages=4))
     if res["decode_path"] != "dense" or res["paged_rounds"] != 0:
         raise AssertionError("rwkv6 left the dense slot path")
+    check_slots(res, cfg)
     check_counts(res, cfg, {"rwkv6_scan": cfg.num_layers * len(prompts)})
     if res["lmb_link_bytes"]:
         raise AssertionError(f"rwkv6 moved LMB bytes: "
@@ -1149,6 +1193,7 @@ def serve_phases(torch, lens, news, prompts) -> dict:
         apart=(("ssm", ssm_mod, "ssm_apply"),))
     if res["decode_path"] != "dense":
         raise AssertionError("hymba left the dense slot path")
+    check_slots(res, cfg)
     check_counts(res, cfg, {"ssd_scan": cfg.num_layers * len(prompts),
                             "flash_attention": cfg.num_layers * len(prompts)})
     if sum(res["lmb_link_bytes"].values()) <= 0:
@@ -1158,14 +1203,16 @@ def serve_phases(torch, lens, news, prompts) -> dict:
 
 
 def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
-    """Phase 3s's work on one engine, eager or staged: ``prompts`` served
-    twice.  The first run is measured as a user meets it (counts reset
-    just before it and read just after; a staged engine runs each batch
-    size's first round eagerly and captures its graph at the second);
-    the second serves the same prompts again with the model step timed
-    per round, the device synchronised around it (a staged engine
-    replays, and captures the batch sizes the first run met once).  A
-    staged engine's replay is then traced (:func:`replay_trace`)."""
+    """Phase 3s's and 3d's work on one engine, eager or staged:
+    ``prompts`` served twice.  The first run is measured as a user meets
+    it (counts reset just before it and read just after; a staged engine
+    runs each batch size's, or on the dense slot path each slot's, first
+    step eagerly and captures its graph at the second); the second serves
+    the same prompts again with the model step timed per call (a paged
+    round, or one request's dense step), the device synchronised around
+    it (a staged engine replays, and captures what the first run met
+    once).  A staged engine's replay is then traced
+    (:func:`replay_trace`)."""
     from repro_torch.core.metrics import GLOBAL_METRICS
     from repro_torch.kernels import cuda_build, ops
 
@@ -1180,9 +1227,12 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
             raise AssertionError(f"not all done: {[r.state for r in reqs]}")
         streams = [list(r.out_tokens) for r in reqs]
         gen = sum(len(s) for s in streams)
+        # every token after a request's first (its prefill's) is one
+        # decode step of that request
         return {"streams": streams, "wall_s": wall,
                 "tokens_per_s": gen / wall,
-                "paged_rounds": eng.paged_rounds - rounds0}
+                "paged_rounds": eng.paged_rounds - rounds0,
+                "decode_steps": gen - len(streams)}
 
     GLOBAL_METRICS.reset()             # the onboard tier's hits and misses
     cuda_build.reset_launch_counts()
@@ -1196,7 +1246,8 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
         link_bytes=dict(eng.kv.buf.host.fm.op_bytes()),
         hits=tier.hits, misses=tier.misses,
         staged=eng.staged.stats() if eng.staged else None)
-    step_s, capture_s, fn = [], [], eng._paged_fn
+    attr = "_paged_fn" if eng._use_paged else "_decode_fn"
+    step_s, capture_s, fn = [], [], getattr(eng, attr)
 
     def timed(*args):
         captures = eng.staged.captures if eng.staged else 0
@@ -1208,7 +1259,7 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
         (capture_s if captured else step_s).append(time.monotonic() - t)
         return out
 
-    eng._paged_fn = timed
+    setattr(eng, attr, timed)
     second = run()
     second["step_ms"] = sorted(x * 1e3 for x in step_s)
     second["capture_ms"] = [x * 1e3 for x in capture_s]
@@ -1234,12 +1285,15 @@ def first_run_tokens_per_s(torch, cfg, flags, params, prompts, ecfg,
 
 
 def replay_trace(torch, eng, cfg, flags, params) -> dict:
-    """One replay of a staged engine's graph at its largest batch size B,
-    traced with ``torch.profiler``: its device operations in order (the
-    graph is one stream's capture, so they run in the step's order).
-    Fails unless it holds exactly one ``paged_split_kernel`` and one
-    ``paged_combine_kernel`` a layer: a replay calls no wrapper, so this
-    is what the replayed launch counts rest on.  For an MoE model the
+    """One replay of a staged engine's graph, traced with
+    ``torch.profiler``: its device operations in order (the graph is one
+    stream's capture, so they run in the step's order).  The paged step's
+    graph at its largest batch size B must hold exactly one
+    ``paged_split_kernel`` and one ``paged_combine_kernel`` a layer: a
+    replay calls no wrapper, so this is what the replayed launch counts
+    rest on.  On the dense slot path the graph of the slot that stepped
+    most (B = 1) is traced, which holds no kernel of the port (its
+    decode step is PyTorch's operations alone).  For an MoE model the
     MoE layer is found in the same trace: ``moe_apply`` run eagerly at
     the step's input shape [B, 1, D] is traced on its own, and its
     sequence of operation names must occur once a layer in the replay's;
@@ -1275,8 +1329,13 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
                  if e.name.startswith(("Memset", "Memcpy")) else e.name,
                  e.time_range.elapsed_us()) for e in evs]
 
-    B = max(eng.staged.graphs)
-    graph = eng.staged.graphs[B].graph
+    if eng._use_paged:
+        B = max(eng.staged.graphs)
+        graph = eng.staged.graphs[B].graph
+    else:
+        B, slots = 1, eng.staged.slots
+        slot = max(slots, key=lambda s: slots[s].steps)
+        graph = slots[slot].graph.graph
     ops_ = device_ops(graph.replay)    # not counted: no wrapper runs
     names = [n for n, _ in ops_]
     busy = sum(us for _, us in ops_)
@@ -1285,7 +1344,7 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
     combine = sum("paged_combine_kernel" in n for n in names)
     out = {"B": B, "ops": len(ops_), "device_ms": busy / 1e3,
            "paged_split": split, "paged_combine": combine}
-    if (split, combine) != (L, L):
+    if eng._use_paged and (split, combine) != (L, L):
         raise AssertionError(f"{cfg.name}: the replay ran {split} split and "
                              f"{combine} combine kernels, not {L} each; "
                              f"{len(ops_)} operations, first {names[:8]}")
@@ -1318,6 +1377,61 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
     return out
 
 
+def ms(xs) -> str:
+    """Median and mean of per-step milliseconds."""
+    return (f"median {_pct(xs, 50):.3f} ms, mean {sum(xs) / len(xs):.3f} ms "
+            f"over {len(xs)}")
+
+
+def moe_text(tr) -> str:
+    """A traced replay's MoE share, for an MoE model (else nothing)."""
+    if "moe_ms" not in tr:
+        return ""
+    return (f"; MoE {tr['moe_ms']:.3f} ms, {tr['moe_ops_per_layer']} "
+            f"operations a layer, share {tr['moe_share']:.3f}, expert GEMMs' "
+            f"share {tr['expert_gemm_share']:.3f}")
+
+
+def eager_and_staged(torch, cfg, flags, prompts, ecfg, pairs) -> tuple:
+    """Phases 3s's and 3d's runs of ``cfg`` (params from seed 0): a
+    warm-up, then one eager (``staged=False``) and one staged engine
+    (:func:`staged_run`), then ``pairs - 1`` more pairs of fresh engines'
+    first runs, the order alternating (a first run's tokens/s moves a few
+    per cent between runs).  Fails unless the first runs' streams, link
+    bytes, onboard hits and misses, launch and dispatch counts, paged
+    rounds and decode steps are equal, and the second runs' streams.
+    Returns (eager, staged, first-run tokens/s by ``staged``)."""
+    from repro_torch.models import build_model
+
+    left = free_card(torch)
+    if left > 1.0:
+        raise AssertionError(f"{left:.2f} GiB of earlier phases still on "
+                             "the card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = build_model(cfg, flags, device="cuda").init(gen)
+    # warm-up: cuBLAS handles, the allocator, the kernels
+    staged_run(torch, cfg, flags, params, [(prompts[0][0][:16], 2)], ecfg,
+               False)
+    eager, staged = (staged_run(torch, cfg, flags, params, prompts, ecfg, s)
+                     for s in (False, True))
+    fresh = {False: [eager["first"]["tokens_per_s"]],
+             True: [staged["first"]["tokens_per_s"]]}
+    for k in range(1, pairs):
+        for s in ((False, True) if k % 2 == 0 else (True, False)):
+            fresh[s].append(first_run_tokens_per_s(
+                torch, cfg, flags, params, prompts, ecfg, s))
+    del params
+    e1, s1 = eager["first"], staged["first"]
+    for key in ("streams", "link_bytes", "hits", "misses", "launches",
+                "dispatches", "paged_rounds", "decode_steps"):
+        if e1[key] != s1[key]:
+            raise AssertionError(f"{cfg.name}: staged {key} {s1[key]} != "
+                                 f"eager {e1[key]}")
+    if eager["second"]["streams"] != staged["second"]["streams"]:
+        raise AssertionError(f"{cfg.name}: second runs' streams differ")
+    return eager, staged, fresh
+
+
 def staged_phase(torch, lens, news, card) -> dict:
     """Phase 3s: qwen2-1.5b (full) and dbrx-132b (full width, 8 of 40
     layers) served eager (``staged=False``) and staged, one engine each,
@@ -1331,7 +1445,6 @@ def staged_phase(torch, lens, news, card) -> dict:
     ``FRESH_PAIRS`` fresh engines each), the replay's device time (and
     for dbrx-132b its MoE share), on the card."""
     from repro_torch.configs.base import get_config
-    from repro_torch.models import build_model
     from repro_torch.models.flags import Flags
     from repro_torch.serve import EngineConfig
 
@@ -1342,37 +1455,12 @@ def staged_phase(torch, lens, news, card) -> dict:
                                num_layers=DBRX_LAYERS)
     out = {}
     for seed, cfg in ((10, get_config("qwen2-1.5b")), (11, dbrx)):
-        left = free_card(torch)
-        if left > 1.0:
-            raise AssertionError(f"{left:.2f} GiB of earlier phases still "
-                                 "on the card")
         t0 = time.monotonic()
-        prompts = prompts_for(cfg, lens, news, seed)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = build_model(cfg, flags, device="cuda").init(gen)
-        # warm-up: cuBLAS handles, the allocator, both kernels
-        staged_run(torch, cfg, flags, params, [(prompts[0][0][:16], 2)],
-                   ecfg, False)
-        eager, staged = (staged_run(torch, cfg, flags, params, prompts, ecfg,
-                                    s) for s in (False, True))
-        # more fresh engines' first runs, the order alternating: a
-        # first run's tokens/s moves a few per cent between runs
-        fresh = {False: [eager["first"]["tokens_per_s"]],
-                 True: [staged["first"]["tokens_per_s"]]}
-        for k in range(1, FRESH_PAIRS):
-            for s in ((False, True) if k % 2 == 0 else (True, False)):
-                fresh[s].append(first_run_tokens_per_s(
-                    torch, cfg, flags, params, prompts, ecfg, s))
-        del params
+        eager, staged, fresh = eager_and_staged(
+            torch, cfg, flags, prompts_for(cfg, lens, news, seed), ecfg,
+            FRESH_PAIRS)
         L = cfg.num_layers
-        e1, s1 = eager["first"], staged["first"]
-        for key in ("streams", "link_bytes", "hits", "misses", "launches",
-                    "dispatches", "paged_rounds"):
-            if e1[key] != s1[key]:
-                raise AssertionError(f"{cfg.name}: staged {key} "
-                                     f"{s1[key]} != eager {e1[key]}")
-        if eager["second"]["streams"] != staged["second"]["streams"]:
-            raise AssertionError(f"{cfg.name}: second runs' streams differ")
+        s1 = staged["first"]
         if s1["launches"].get("paged_attention") != L * s1["paged_rounds"]:
             raise AssertionError(f"{cfg.name}: paged ran "
                                  f"{s1['launches']} times, not {L} x "
@@ -1388,10 +1476,6 @@ def staged_phase(torch, lens, news, card) -> dict:
             raise AssertionError(f"{cfg.name}: captures and replays {st1} "
                                  f"then {st2}")
         tr = staged["trace"]
-
-        def ms(xs):
-            return (f"median {_pct(xs, 50):.3f} ms, mean "
-                    f"{sum(xs) / len(xs):.3f} ms over {len(xs)}")
         med = {s: _pct(xs, 50) for s, xs in fresh.items()}
         first_ratio = med[True] / med[False]
         ahead = sum(a > b for a, b in zip(fresh[True], fresh[False]))
@@ -1418,15 +1502,98 @@ def staged_phase(torch, lens, news, card) -> dict:
               f"{ms(eager['second']['step_ms'])}; staged replays "
               f"{ms(staged['second']['step_ms'])}, capture rounds "
               f"{[round(x, 3) for x in staged['second']['capture_ms']]} ms")
-        moe = (f"; MoE {tr['moe_ms']:.3f} ms, {tr['moe_ops_per_layer']} "
-               f"operations a layer, share {tr['moe_share']:.3f}, expert "
-               f"GEMMs' share {tr['expert_gemm_share']:.3f}"
-               if "moe_ms" in tr else "")
         print(f"  replay at B={tr['B']} traced: {tr['ops']} device "
               f"operations, {tr['paged_split']} paged_split_kernel and "
               f"{tr['paged_combine']} paged_combine_kernel, device time "
-              f"{tr['device_ms']:.3f} ms{moe}; on {card}; "
+              f"{tr['device_ms']:.3f} ms{moe_text(tr)}; on {card}; "
               f"{time.monotonic() - t0:.1f} s")
+        out[cfg.name] = {"eager": eager, "staged": staged}
+    free_card(torch)
+    return out
+
+
+def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
+                       ) -> dict:
+    """Phase 3d: the dense slot path (each request alone at B = 1 against
+    its own cache, as the reference's ``jax.jit(model.decode_step)``)
+    served eager (``staged=False``) and staged, one engine each, the same
+    params and prompts (:func:`staged_run`), for ``archs`` (by default
+    rwkv6-7b and h2o-danube-3-4b at full width and depth, phase 3's
+    prompt lengths).  Fails unless the greedy streams, link bytes, onboard
+    hits and misses and launch and dispatch counts are equal, the prefill
+    kernel (``rwkv6_scan`` or ``flash_attention``) launched layers x
+    prompts and the paged kernel never, each slot's first step ran
+    eagerly, its second captured and every later one replayed, and the
+    second run captured nothing.  Prints the model step per decode step,
+    eager beside replayed (synchronised medians), first-run tokens/s of
+    ``DENSE_FRESH_PAIRS`` fresh engines each, staged beside eager, and
+    one replay's device time and operation count, on the card."""
+    from repro_torch.configs.base import RWKV6, get_config
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig
+
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    flags = Flags(remat=False, use_kernels=True)
+    out = {}
+    for arch in archs:
+        layers, seed = DENSE_STAGED[arch]
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        t0 = time.monotonic()
+        prompts = prompts_for(cfg, lens, news, seed)
+        eager, staged, fresh = eager_and_staged(
+            torch, cfg, flags, prompts, ecfg, DENSE_FRESH_PAIRS)
+        L = cfg.num_layers
+        s1 = staged["first"]
+        kernel = "rwkv6_scan" if cfg.block_type == RWKV6 \
+            else "flash_attention"
+        got = s1["launches"]
+        if got.get(kernel) != L * len(prompts) or s1["paged_rounds"] or \
+                got.get("paged_attention", 0):
+            raise AssertionError(f"{cfg.name}: launches {got}, "
+                                 f"{s1['paged_rounds']} paged rounds; want "
+                                 f"{kernel} {L} x {len(prompts)}, no paged")
+        st1, st2 = s1["staged"], staged["second"]["staged"]
+        steps = list(st1["steps"].values())
+        if st1["eager_steps"] != len(steps) or \
+                st1["captures"] != sum(n > 1 for n in steps) or \
+                sum(steps) != s1["decode_steps"] or \
+                st1["replays"] != sum(steps) - len(steps) or \
+                st2["captures"] != st1["captures"] or \
+                st2["eager_steps"] != st1["eager_steps"] or \
+                st2["replays"] - st1["replays"] != \
+                staged["second"]["decode_steps"]:
+            raise AssertionError(f"{cfg.name}: eager steps, captures and "
+                                 f"replays {st1} then {st2}")
+        tr = staged["trace"]
+        med = {s: _pct(xs, 50) for s, xs in fresh.items()}
+        step_med = {s: _pct(r["second"]["step_ms"], 50)
+                    for s, r in ((False, eager), (True, staged))}
+        print(f"phase 3d: {cfg.name}, {L} layers, dense slot path, eager "
+              f"and staged: equal streams, link bytes {s1['link_bytes']}, "
+              f"hits {s1['hits']}, misses {s1['misses']}, launches {got}; "
+              f"{st1['slots']} slots, steps a slot {steps}: first run "
+              f"{st1['eager_steps']} eager steps, {st1['captures']} "
+              f"captures ({st1['capture_s']:.3f} s of host time), "
+              f"{st1['replays']} replays; second run "
+              f"{st2['captures'] - st1['captures']} captures, "
+              f"{st2['replays'] - st1['replays']} replays")
+        print(f"  model step per decode step (second run, synchronised): "
+              f"eager {ms(eager['second']['step_ms'])}; staged replays "
+              f"{ms(staged['second']['step_ms'])}; medians staged/eager "
+              f"{step_med[True] / step_med[False]:.3f}")
+        print(f"  first run tokens/s, {DENSE_FRESH_PAIRS} fresh engines "
+              f"each, the order alternating: eager "
+              f"{[round(x, 1) for x in fresh[False]]}, staged "
+              f"{[round(x, 1) for x in fresh[True]]} (captures included); "
+              f"medians staged/eager {med[True] / med[False]:.3f}; second "
+              f"run: eager {eager['second']['tokens_per_s']:.1f}, staged "
+              f"{staged['second']['tokens_per_s']:.1f}")
+        print(f"  one slot's replay traced: {tr['ops']} device operations, "
+              f"device time {tr['device_ms']:.3f} ms{moe_text(tr)}; on "
+              f"{card}; {time.monotonic() - t0:.1f} s")
         out[cfg.name] = {"eager": eager, "staged": staged}
     free_card(torch)
     return out
@@ -1434,11 +1601,12 @@ def staged_phase(torch, lens, news, card) -> dict:
 
 def sync_refusal_phase(torch) -> None:
     """Phase 9, last (a failed capture leaves the stream it captured on
-    in no state to trust): a host sync injected into the staged paged
-    step (reduced qwen2-1.5b, one request, so B = 1 every round) runs in
-    the eager first round and must make the engine raise at the second
-    round's capture, with no graph made and no eager round run in its
-    place."""
+    in no state to trust): a host sync injected into each staged step,
+    one request each, runs in the eager first step and must make the
+    engine raise at the second step's capture, with no graph made and no
+    eager step run in its place: the paged step (reduced qwen2-1.5b, so
+    B = 1 every round) and the dense slot step (reduced h2o-danube-3-4b,
+    its one slot)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import system_for
     from repro_torch.models import build_model
@@ -1446,15 +1614,51 @@ def sync_refusal_phase(torch) -> None:
     from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
     import numpy as np
 
-    cfg = get_config("qwen2-1.5b").reduced()
-    model = build_model(cfg, Flags(remat=False, use_kernels=True),
-                        device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = ServeEngine(model, params, system_for("gpu0", host_id="h0",
-                                                pool_gib=1, page_bytes=4096),
-                      EngineConfig(decode_slots=2, max_seq_len=64,
-                                   page_tokens=8, onboard_pages=8),
-                      device_id="gpu0", device="cuda")
+    def engine(arch):
+        model = build_model(get_config(arch).reduced(),
+                            Flags(remat=False, use_kernels=True),
+                            device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        eng = ServeEngine(model, params,
+                          system_for("gpu0", host_id="h0", pool_gib=1,
+                                     page_bytes=4096),
+                          EngineConfig(decode_slots=2, max_seq_len=64,
+                                       page_tokens=8, onboard_pages=8),
+                          device_id="gpu0", device="cuda")
+        eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
+                              max_new_tokens=4))
+        return eng
+
+    def refused(eng, what):
+        try:
+            eng.run(10)
+        except RuntimeError as exc:
+            return str(exc).splitlines()[0][:160]
+        raise AssertionError(f"a host sync inside the staged {what} did "
+                             "not raise")
+
+    # the dense slot step first: the paged engine's failed capture is the
+    # script's last use of the card
+    eng = engine("h2o-danube-3-4b")
+    step = eng.staged.step
+
+    def syncing_dense(params, cache, token):
+        int(cache["step"])                  # a host sync
+        return step(params, cache, token)
+
+    eng.staged.step = syncing_dense
+    msg = refused(eng, "dense slot step")
+    req = eng.requests[0]
+    if eng.staged.captures or eng.staged.eager_steps != 1 or \
+            len(req.out_tokens) != 2:
+        raise AssertionError(f"captures {eng.staged.captures}, eager steps "
+                             f"{eng.staged.eager_steps}, tokens "
+                             f"{req.out_tokens} after a failed capture")
+    print(f"phase 9: a host sync in the staged dense slot step ran in the "
+          f"slot's eager first step and raised at the second step's "
+          f"capture ({msg}); no graph, no eager step in its place")
+
+    eng = engine("qwen2-1.5b")
     step = eng.staged.step
 
     def syncing(params, pool, page_table, lengths, token):
@@ -1462,40 +1666,44 @@ def sync_refusal_phase(torch) -> None:
         return step(params, pool, page_table, lengths, token)
 
     eng.staged.step = syncing
-    eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
-                          max_new_tokens=4))
-    try:
-        eng.run(10)
-    except RuntimeError as exc:
-        msg = str(exc).splitlines()[0][:160]
-    else:
-        raise AssertionError("a host sync inside the staged step did not "
-                             "raise")
+    msg = refused(eng, "paged step")
     if eng.staged.captures or eng.paged_rounds != 1 or \
             eng.staged.eager_rounds != 1:
         raise AssertionError(f"captures {eng.staged.captures}, paged rounds "
                              f"{eng.paged_rounds}, eager rounds "
                              f"{eng.staged.eager_rounds} after a failed "
                              "capture")
-    print(f"phase 9: a host sync in the staged step ran in the eager first "
-          f"round and raised at the second round's capture ({msg}); no "
-          f"graph, no eager round in its place")
+    print(f"phase 9: a host sync in the staged paged step ran in the eager "
+          f"first round and raised at the second round's capture ({msg}); "
+          f"no graph, no eager round in its place")
 
 
-def ring_check(cfg, req) -> dict:
+def ring_check(cfg, eng, req) -> dict:
     """Phase 4e's long request on the dense slot path: its prompt passed
     the window, and its decode wrapped the ring of ``sliding_window``
-    slots (every slot written, the last position past the ring)."""
-    cache = req._cache
-    C = cache["k"].shape[2]
+    slots (every slot written, the last position past the ring).  The
+    staged engine left its cache in the slot it decoded in: the one slot
+    cache holding a position past its prompt, which no other request
+    reaches."""
     n = len(req.prompt)
+    if eng.staged is None:
+        cache = req._cache
+    else:
+        held = [st.cache for st in eng.staged.slots.values()
+                if int(st.cache["pos"].max()) >= n]
+        if len(held) != 1:
+            raise AssertionError(f"{len(held)} slot caches hold positions "
+                                 f"past the long request's prompt")
+        cache = held[0]
+    C = cache["k"].shape[2]
     last = n + len(req.out_tokens) - 2      # the last token decoded
     pos = cache["pos"][0]
+    step = int(cache["step"])
     got = {"prompt": n, "new_tokens": len(req.out_tokens), "ring_slots": C,
-           "step": cache["step"], "last_position": int(pos.max()),
+           "step": step, "last_position": int(pos.max()),
            "its_slot": last % C}
     print(f"  long request: {json.dumps(got)}")
-    if C != cfg.sliding_window or n <= C or cache["step"] != last + 1 or \
+    if C != cfg.sliding_window or n <= C or step != last + 1 or \
             got["last_position"] != last or int(pos.min()) < 0 or \
             int(pos[last % C]) != last:
         raise AssertionError(f"the long request did not wrap the ring: "
@@ -1531,7 +1739,7 @@ def new_serve_phases(torch, lens, news) -> dict:
             run_ecfg = dataclasses.replace(ecfg, max_seq_len=n + m)
 
             def inspect(eng, reqs, cfg=cfg, ring=ring):
-                ring.update(ring_check(cfg, reqs[-1]))
+                ring.update(ring_check(cfg, eng, reqs[-1]))
         apart = (("moe", moe_mod, "moe_apply"),) \
             if cfg.block_type == MOE else ()
         served[arch] = res = serve_phase(
@@ -1546,6 +1754,7 @@ def new_serve_phases(torch, lens, news) -> dict:
         else:
             if res["decode_path"] != "dense" or res["paged_rounds"] != 0:
                 raise AssertionError(f"{arch} left the dense slot path")
+            check_slots(res, cfg)
             check_counts(res, cfg, {"flash_attention": L * len(prompts),
                                     "paged_attention": 0,
                                     "paged_attention_decode": 0})
@@ -1779,6 +1988,7 @@ def reference_phase(torch, arch, lengths, max_seq_len, cfg=None):
             streams.append([eng.requests[r].out_tokens for r in rids])
             op.append(eng.kv.buf.host.fm.op_bytes())
             path = eng.stats()["decode_path"]
+            staged = eng.staged.stats()
             system.close()
     finally:
         moe_mod.route = route
@@ -1790,8 +2000,12 @@ def reference_phase(torch, arch, lengths, max_seq_len, cfg=None):
         lg, _ = model.prefill(params, {"tokens": tok.to(device)},
                               model.init_cache(1, max_seq_len))
         logits.append(lg.cpu())
+    if path == "dense":
+        # the card's dense slot steps ran from captured graphs
+        check_slots({"staged": staged, "decode_path": path}, cfg)
     print(f"phase 5: reduced {arch} f32, head_dim {cfg.head_dim_}, card "
-          f"against CPU plain path, {path} decode")
+          f"against CPU plain path, {path} decode, staged on the card: "
+          f"{staged['captures']} captures, {staged['replays']} replays")
     if margins:
         m, call, token = min(margins)
         print(f"  smallest router margin (k-th minus (k+1)-th logit) on the "
@@ -2323,9 +2537,7 @@ def dryrun_real_args(torch, model, shape):
     if shape.kind == "train":
         return params, opt_state_init(params), {"tokens": ids(B, S),
                                                 "labels": ids(B, S)}
-    cache = model.init_cache(B, S)
-    cache["step"] = torch.zeros((), dtype=torch.int32, device="cuda")
-    return params, cache, ids(B, 1)
+    return params, model.init_cache(B, S), ids(B, 1)
 
 
 def dryrun_phase(torch, card: str) -> dict:
@@ -2390,8 +2602,7 @@ def dryrun_phase(torch, card: str) -> dict:
         times, rise = [], 0
         for _ in range(3):
             if kind == "decode":
-                args[1]["step"] = torch.zeros((), dtype=torch.int32,
-                                              device="cuda")
+                args[1]["step"].zero_()     # the step advances it
             gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2489,6 +2700,9 @@ def main(argv=None) -> int:
                         help="only time this checkout's paged attention, "
                         "flash attention and WKV6 scan wrappers beside "
                         "another's")
+    parser.add_argument("--dense-staged", metavar="ARCH[,ARCH]",
+                        help="only build the kernels and run phase 3d for "
+                        f"these configs (of {', '.join(DENSE_STAGED)})")
     parser.add_argument("--time-tree", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.time_tree is not None:
@@ -2522,6 +2736,12 @@ def main(argv=None) -> int:
         print_ptxas(name, log)
 
     lens, news, serve_lengths, rng = workload()
+    if args.dense_staged:
+        staged_dense_phase(torch, lens, news, card,
+                           args.dense_staged.split(","))
+        print(f"total {time.monotonic() - t_start:.1f}s")
+        print(card)
+        return 0
     # qwen2-1.5b's vocabulary (151,936 ids); the other phases draw theirs
     prompts = [(rng.integers(0, 151936, n).astype(np.int32), m)
                for n, m in zip(lens, news)]
@@ -2530,6 +2750,7 @@ def main(argv=None) -> int:
     kernels.append(rwkv_kernel_phase(torch, max(lens)))
     served = serve_phases(torch, lens, news, prompts)
     staged_phase(torch, lens, news, card)
+    staged_dense_phase(torch, lens, news, card)
     seamless = seamless_phase(torch)
     served.update(new_serve_phases(torch, lens, news))
     swept = sweep_phase(torch, card)

@@ -323,6 +323,16 @@ def _masked_setitem(dst, idx, src) -> bool:
     return True
 
 
+def _slot_setitem(dst, dim: int, index, src):
+    """``dst.index_copy_(dim, index, src)`` with a one-element ``index``
+    (the decode step's write of the new token into its cache slot) as the
+    ``dst[..., i] = src`` it is: ``(idx, value)``.  The slot is read on
+    the host here, where the cache's step is a known 0; the step itself
+    keeps it on the device."""
+    return (slice(None),) * dim + (int(index.reshape(())),), \
+        src.select(dim, 0)
+
+
 def _vocab_local(dt, ids, dim: int):
     """This rank's slice of ``dt`` along its sharded ``dim``: (local ids,
     in-range mask)."""
@@ -495,6 +505,15 @@ class ShardedRules(TorchFunctionMode):
             if _masked_setitem(*args):
                 self._note("masked_write")
                 return None
+        elif func is torch.Tensor.index_copy_ and not kwargs and \
+                args[2].numel() == 1:
+            dst = args[0]
+            idx, src = _slot_setitem(*args)
+            if _masked_setitem(dst, idx, src):
+                self._note("masked_write")
+            else:
+                dst[idx] = src
+            return dst
         elif func is torch.Tensor.__getitem__:
             out = _vocab_lookup(*args)
             if out is not None:
@@ -617,7 +636,8 @@ def argument_bytes(args, specs, mesh) -> int:
 def _place(meta: torch.Tensor, spec, mesh):
     """A DTensor of ``meta``'s shape and dtype placed by ``spec``, over a
     fake local shard (the active ``FakeTensorMode`` makes it).  A 0-d
-    integer (a cache's step counter) holds 0, which the step may read."""
+    integer (a cache's step counter) holds 0, which the dry run's rule for
+    the cache slot's write reads (:func:`_slot_setitem`)."""
     from torch.distributed.tensor import DTensor
     if meta.dim() == 0:
         local = torch.tensor(0, dtype=meta.dtype)

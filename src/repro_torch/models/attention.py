@@ -132,28 +132,35 @@ def attn_forward(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
 
 def attn_decode(p: Params, cfg, x: torch.Tensor,
                 cache_k: torch.Tensor, cache_v: torch.Tensor,
-                cache_pos: torch.Tensor, step: int,
+                cache_pos: torch.Tensor, step: torch.Tensor,
                 flags: Flags = DEFAULT_FLAGS):
     """One-token decode against a (linear or ring) KV cache.
 
     x          [B, 1, D]
     cache_k/v  [B, C, KV, hd]  (C = S_max, or window size for SWA ring)
     cache_pos  [B, C] int32    absolute position stored in each slot (-1 empty)
-    step       int             absolute position of the new token
+    step       []    int32     absolute position of the new token
 
+    ``step`` is read on the device only (positions, the ring slot and the
+    mask are tensors), so the step can be captured as a CUDA graph.
     Writes the new token's K/V and position into the caches **in place**
     and returns (y, cache_k, cache_v, cache_pos).
     """
     B = x.shape[0]
     C = cache_k.shape[1]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    positions = torch.full((B, 1), step, dtype=torch.int32, device=x.device)
+    # a copy, not a broadcast view of ``step``: under FakeTensorMode (the
+    # dry run) such a view drops the step's known value, which the dry
+    # run's rule for the slot write below reads
+    positions = step.reshape(1, 1).repeat(B, 1)
     q, k, v = _qkv(p, cfg, x, positions)
 
-    slot = step % C  # ring index (== step for linear caches)
-    cache_k[:, slot] = k[:, 0]          # in place
-    cache_v[:, slot] = v[:, 0]          # in place
-    cache_pos[:, slot] = positions[:, 0]  # in place
+    # ring index (== step for linear caches) as a one-element index: a 0-d
+    # tensor used as an index may be read back as a host integer
+    slot = torch.remainder(step, C).reshape(1).long()
+    cache_k.index_copy_(1, slot, k.to(cache_k.dtype))          # in place
+    cache_v.index_copy_(1, slot, v.to(cache_v.dtype))          # in place
+    cache_pos.index_copy_(1, slot, positions)                  # in place
 
     scale = 1.0 / math.sqrt(hd)
     G = H // KV

@@ -6,7 +6,8 @@ embeddings [B, S_src, D] (``models/frontend.py`` draws them).  Decoder
 layers carry self-attention (cached at decode) and cross-attention over
 the encoder output, whose K/V are computed once at prefill and stored
 [L, B, S_src, KV, hd].  As elsewhere in the port, the decode step updates
-the cache **in place** and returns it; ``step`` is a host integer.
+the cache **in place** and returns it; ``step`` is a 0-d int32 tensor on
+the cache's device, advanced in place.
 Training runs the teacher-forced decoder (:func:`decode_train`), each
 layer under ``_remat`` as in the reference.
 """
@@ -126,7 +127,7 @@ def prefill(layers: Params, cfg: ArchConfig, tgt_emb: torch.Tensor,
         new_cache["v"][l, :, :n] = v[:, :n]
         new_cache["cross_k"][l] = ek
         new_cache["cross_v"][l] = ev
-    new_cache["step"] = S
+    new_cache["step"] = torch.full_like(cache["step"], S)
     slots = torch.arange(C, device=tgt_emb.device)
     pos_row = torch.where(slots < S, slots, -1).to(torch.int32)
     new_cache["pos"] = pos_row[None].expand(B, C).clone()
@@ -139,7 +140,7 @@ def decode_step(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     position at slot ``step % C`` in place (every layer the same slot of
     the one shared ``pos``), then cross-attention and the FFN.  Returns
     (x, cache)."""
-    step = int(cache["step"])
+    step = cache["step"]
     for l in range(num_layers(layers["dec"])):
         lp = layer(layers["dec"], l)
         xn = rms_norm(lp["norm1"], x, cfg.norm_eps)
@@ -148,5 +149,5 @@ def decode_step(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                                       flags)
         x = _dec_tail(lp, cfg, x + a, cache["cross_k"][l],
                       cache["cross_v"][l], flags)
-    cache["step"] = step + 1
+    step.add_(1)
     return x, cache

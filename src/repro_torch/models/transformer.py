@@ -186,15 +186,17 @@ def cache_len(cfg: ArchConfig, seq_len: int) -> int:
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
                n_layers: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed decode cache (stacked [L] leaves).  pos slots start at -1;
-    ``step`` is a host integer.  An RWKV6 cache holds each layer's
-    recurrent state and no KV."""
+    ``step`` is a 0-d int32 tensor on ``device``, as in the reference, so
+    the decode step reads it on the device only.  An RWKV6 cache holds
+    each layer's recurrent state and no KV."""
     L = n_layers or cfg.num_layers
     dt = dtype_of(cfg)
+    step = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.block_type == RWKV6:
         N = cfg.rwkv_head_dim
         H = cfg.d_model // N
         D = cfg.d_model
-        return {"step": 0,
+        return {"step": step,
                 "tmix_prev": torch.zeros((L, batch, 1, D), dtype=dt,
                                          device=device),
                 "wkv": torch.zeros((L, batch, H, N, N), dtype=torch.float32,
@@ -203,7 +205,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
                                          device=device)}
     C = cache_len(cfg, seq_len)
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
-    cache = {"step": 0,
+    cache = {"step": step,
              "k": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
              "v": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
              "pos": torch.full((batch, C), -1, dtype=torch.int32,
@@ -278,7 +280,7 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                            cache[key].shape[2])           # in place
             else:
                 new_cache[key][l] = entries[key]          # in place
-    new_cache["step"] = S
+    new_cache["step"] = torch.full_like(cache["step"], S)
     if "pos" in cache:
         pos = cache["pos"].clone()
         _ring_fill(pos, positions.to(torch.int32), pos.shape[1])
@@ -288,7 +290,8 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
                  layer_cache: Dict[str, torch.Tensor],
-                 pos_slots: Optional[torch.Tensor], step: int, flags: Flags):
+                 pos_slots: Optional[torch.Tensor], step: torch.Tensor,
+                 flags: Flags):
     """One-token decode for one layer; updates the layer's cache views in
     place.  Returns x."""
     if cfg.block_type == RWKV6:
@@ -321,8 +324,10 @@ def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
 def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict[str, Any], flags: Flags):
     """Loop over layers against the per-layer caches; the cache is
-    updated in place and returned."""
-    step = int(cache["step"])
+    updated in place and returned.  ``step`` stays on the device: it is
+    passed down as a tensor and advanced in place, so a step captured
+    against a static cache moves it on at every replay."""
+    step = cache["step"]
     keys = _layer_keys(cfg)
     # every layer writes the same new position into its slot (in place),
     # so the one shared pos tensor serves them all
@@ -330,7 +335,7 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
         x = block_decode(layer(layers, l), cfg, x,
                          {key: cache[key][l] for key in keys},
                          cache.get("pos"), step, flags)
-    cache["step"] = step + 1
+    step.add_(1)
     return x, cache
 
 

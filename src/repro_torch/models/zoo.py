@@ -203,15 +203,12 @@ class Model:
         raise ValueError(shape.kind)
 
     def cache_specs(self, shape) -> Dict[str, Any]:
-        """The decode cache of ``shape`` as ``meta`` tensors.  ``step`` is a
-        0-d int32, as in the reference's cache; the port's own caches keep
-        it as a host integer, and ``decode_step`` takes either."""
+        """The decode cache of ``shape`` as ``meta`` tensors; ``step`` is a
+        0-d int32, as in every cache the port and the reference make."""
         if isinstance(shape, str):
             shape = SHAPES[shape]
         B, S = shape.global_batch, shape.seq_len
-        cache = self.init_cache(B, S, device="meta")
-        cache["step"] = _meta((), torch.int32)
-        return cache
+        return self.init_cache(B, S, device="meta")
 
 
 def _meta(shape, dtype) -> torch.Tensor:

@@ -17,12 +17,16 @@ through it — ADMIT seats the request, THROTTLE leaves it queued for a
 later round, SHED rejects it outright (state "shed").  Completed request
 latencies feed the tenant's SLO tracker, closing the loop.
 
-PyTorch port of ``repro.serve.engine``: where the reference stages the
-paged decode step with ``jax.jit``, the port captures it as one CUDA
-graph per batch size (``serve/staged.py``; ``staged=False`` runs it
-eagerly), and prefill and the dense slot step run eagerly; greedy argmax
-runs on the device with one host sync per round, and the engine runs on
-the model's device (CUDA unless built with ``device="cpu"``).  The
+PyTorch port of ``repro.serve.engine``: where the reference stages its
+decode steps with ``jax.jit``, the port captures them as CUDA graphs
+(``serve/staged.py``): the paged step one graph per batch size, the dense
+slot step one graph per decode slot, each slot holding a static cache
+that a request's prefilled cache is copied into when it is seated.
+``staged=False`` runs either step eagerly.  Prefill runs eagerly.  Greedy
+argmax runs on the device with one host sync per paged round, and one
+per request and step on the dense slot path, as the reference's; the
+engine runs on the model's device (CUDA unless built with
+``device="cpu"``).  The
 deprecated positional ``submit(prompt, ...)`` shim is not ported:
 ``submit`` takes a :class:`SubmitSpec`.
 """
@@ -45,7 +49,7 @@ from repro_torch.models.zoo import Model
 from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, SpanTracer
 from repro_torch.qos.slo import AdmissionController, Decision
 from repro_torch.serve.kv_cache import PagedKVStore
-from repro_torch.serve.staged import StagedStep
+from repro_torch.serve.staged import StagedSlots, StagedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,7 +242,6 @@ class ServeEngine:
         self.active: Dict[int, Request] = {}      # slot -> request
         self.requests: Dict[int, Request] = {}
         self._next_req = 0
-        self._decode_cache = None                 # dense cache for slots
         self._slot_free = list(range(ecfg.decode_slots))[::-1]
         self._prefill_fn = model.prefill
         self._decode_fn = model.decode_step
@@ -247,10 +250,11 @@ class ServeEngine:
         self._use_paged = (ecfg.paged_decode
                            and model.supports_paged_decode())
         self._max_pages = -(-ecfg.max_seq_len // ecfg.page_tokens)
-        #: the paged step staged as the reference's jax.jit stages it: one
-        #: CUDA graph per batch size (static buffers alone on the CPU);
-        #: ``staged=False`` runs it eagerly, for comparison on the card
-        self.staged: Optional[StagedStep] = None
+        #: the decode step staged as the reference's jax.jit stages it: the
+        #: paged step one CUDA graph per batch size, the dense slot step
+        #: one per slot (static buffers alone on the CPU); ``staged=False``
+        #: runs the step eagerly, for comparison on the card
+        self.staged: Union[StagedStep, StagedSlots, None] = None
         self._paged_fn = None
         if self._use_paged:
             self._paged_fn = model.decode_step_paged
@@ -261,6 +265,11 @@ class ServeEngine:
                     page_shape=self.kv.buf.page_shape,
                     dtype=self.kv.buf.dtype, min_pages=ecfg.onboard_pages,
                     device=self.device)
+        elif staged:
+            self.staged = self._decode_fn = StagedSlots(
+                model.decode_step,
+                lambda: model.init_cache(1, ecfg.max_seq_len),
+                device=self.device)
         self.paged_rounds = 0
 
     # -------------------------------------------------------------- intake
@@ -408,14 +417,23 @@ class ServeEngine:
             # back in one coalesced burst; the dense fallback decodes
             # from its per-request slot cache.
             slot = self._slot_free.pop()
+            if isinstance(self.staged, StagedSlots):
+                # the request's cache (prefilled, or taken out at its
+                # preemption) into the slot's static cache
+                self.staged.seat(slot, req._cache)
+                req._cache = None
             req.state = "active"
             self.active[slot] = req
         self.waiting.extendleft(reversed(deferred))
 
     def preempt(self, slot: int) -> None:
         """Evict a running request: its KV pages demote to the LMB tier
-        on pressure (LinkedBuffer eviction does the actual move)."""
+        on pressure (LinkedBuffer eviction does the actual move).  On the
+        staged dense slot path the request takes a copy of its slot's
+        cache with it, to be seated again on resume."""
         req = self.active.pop(slot)
+        if isinstance(self.staged, StagedSlots):
+            req._cache = self.staged.take(slot)
         req.state = "preempted"
         self.waiting.appendleft(req)
         self._slot_free.append(slot)
@@ -531,8 +549,12 @@ class ServeEngine:
                 continue
             tok = torch.tensor([[req.out_tokens[-1]]], dtype=torch.int32,
                                device=self.device)
-            logits, req._cache = self._decode_fn(self.params, req._cache,
-                                                 tok)
+            if self.staged is not None:
+                logits, cache = self._decode_fn(self.params, slot, tok)
+            else:
+                logits, req._cache = self._decode_fn(self.params,
+                                                     req._cache, tok)
+                cache = req._cache
             nxt = int(torch.argmax(logits[0]))
             req.out_tokens.append(nxt)
             now = self.clock()
@@ -544,7 +566,8 @@ class ServeEngine:
                     tr.event("token", tenant=req.tenant, op="serve",
                              req=req.req_id, gap_s=gap)
             req.last_token_at = now
-            kv_new = self._decode_kv_tail(req._cache)
+            kv_new = self._decode_kv_tail(
+                cache, self.kv.seq(req.seq_id).length)
             try:
                 if kv_new is not None:
                     self.kv.append_tokens(req.seq_id, kv_new)
@@ -667,12 +690,14 @@ class ServeEngine:
         if self._tenant_live[req.tenant] <= 0:
             self.qos.release(req.tenant)
 
-    def _decode_kv_tail(self, cache):
+    def _decode_kv_tail(self, cache, position: int):
+        """The K/V the decode step just wrote for the token at
+        ``position`` (the sequence's stored length, kept on the host),
+        from its ring slot: [L, 2, 1, KV, hd]."""
         if "k" not in cache:
             return None
-        step = int(cache["step"]) - 1
         C = cache["k"].shape[2]
-        slot = step % C
+        slot = position % C
         k = cache["k"][:, 0, slot:slot + 1]
         v = cache["v"][:, 0, slot:slot + 1]
         return torch.stack([k, v], dim=1)

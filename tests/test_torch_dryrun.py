@@ -34,9 +34,9 @@ from repro_torch.roofline import TPU_V5E
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 #: what XLA's output of a decode step holds and the port's does not: the
-#: step counter as a device int32 (the port keeps it a host int) and the
-#: output tuple's index table, 8 B a leaf (logits, step, k, v, pos)
-XLA_ONLY_OUTPUT = 4 + 8 * 5
+#: output tuple's index table, 8 B a leaf (logits, step, k, v, pos).  The
+#: step counter is a device int32 in both
+XLA_ONLY_OUTPUT = 8 * 5
 #: what XLA's CPU backend adds to the decode step's collectives after SPMD
 #: partitioning, per device and weighted: its ``all-reduce-promotion`` and
 #: ``float-normalization-bf16`` passes run each bf16 collective in f32, at
