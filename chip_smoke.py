@@ -57,7 +57,9 @@ Phases (any failure raises and the script exits non-zero):
      each batch size's first round eager, then the paged step captured
      as one CUDA graph per batch size and replayed, its launch counts
      exact through replays, and fails unless the eager rounds (one per
-     batch size) and replays together are its paged rounds;
+     batch size) and replays together are its paged rounds.  Every serve
+     phase's fresh engine meets each prompt length once, so its prefills
+     run eagerly, on the engine's static prefill cache;
   3s. qwen2-1.5b (full) and dbrx-132b (full width, 8 of 40 layers)
      served eager (``staged=False``) and staged, the same params and
      prompts, each engine twice (the second run times the model step per
@@ -66,7 +68,9 @@ Phases (any failure raises and the script exits non-zero):
      and replays, the step per round and tokens/s side by side (three
      fresh engines' first runs each, staged over eager); one replay
      traced with ``torch.profiler`` must hold one paged split and one
-     combine kernel a layer, and gives dbrx-132b's MoE share of it;
+     combine kernel a layer, and gives dbrx-132b's MoE share of it; the
+     second run meets each prompt length again, so it also captures one
+     prefill graph a length, reported apart;
   3d. the dense slot path (each request alone at B = 1 against its own
      cache) likewise: rwkv6-7b and h2o-danube-3-4b at full width and
      depth, phase 3's prompt lengths, served eager and staged (one CUDA
@@ -76,7 +80,23 @@ Phases (any failure raises and the script exits non-zero):
      its second captured and every later one replayed, and the second
      run captures nothing; prints the model step per decode step eager
      beside replayed, first-run tokens/s of two fresh pairs of engines
-     and one slot replay's traced device time and operation count;
+     and one slot replay's traced device time and operation count (the
+     second run's prefill captures reported apart, as in 3s);
+  3p. prefill staged (one CUDA graph per prompt length, all writing into
+     the engine's one static prefill cache): qwen2-1.5b (paged, flash in
+     the graphs), rwkv6-7b (the scan in the graphs) and hymba-1.5b (flash
+     and the SSD scan) at full width in bf16, phase 3's engine and 8
+     prompt lengths with 4 new tokens each, served three times through
+     one engine, staged and eager: each pass's streams, and the link
+     bytes, hits, misses, launch and dispatch counts of the three, equal;
+     flash 28 and 32 and the scan 32 launches a prompt; pass 1 all eager,
+     pass 2 one capture a length, pass 3 replays only; prints eager and
+     replayed prefill (median ms a prompt, synchronised), captures,
+     replays and their host time, the prefill graphs' pool bytes, pass
+     3's mean TTFT and tokens/s and each engine's peak memory;
+  3q. ``examples/quickstart_torch.py`` on the card (the L2P buffer's
+     onboard pages on the card, its LMB tier in pinned host memory) and on
+     the CPU, in this process: equal L2P statistics and fabric snapshot;
   Every dense slot serve phase (4, 4c, 4e, 4i, and phase 5's dense
      configs on the card) runs the engine as it comes, staged, and fails
      unless each slot's first step ran eagerly, its second captured and
@@ -174,18 +194,20 @@ Phases (any failure raises and the script exits non-zero):
      predicted peak must lie within 10 % (decode) and 20 % (train) of the
      rise in ``torch.cuda.max_memory_allocated()`` over the step; each
      prints the measured step time beside the roofline's and their ratio.
-  9. last: a host sync injected into the staged dense slot step (reduced
+  9. last: a host sync injected into the staged prefill (reduced
+     qwen2-1.5b), then into the staged dense slot step (reduced
      h2o-danube-3-4b), then into the staged paged step (reduced
-     qwen2-1.5b), must make the engine raise at capture (a slot's second
-     step, the second round at a batch size), with no graph made and no
-     eager step run instead.
+     qwen2-1.5b), must make the engine raise at capture (a prompt
+     length's second prefill, a slot's second step, the second round at a
+     batch size), with no graph made and no eager call run instead.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
 
 The last lines are the ``kernels`` JSON (each kernel's launches on the
-training path too, none, and on the load sweep's run (i)), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+training path too, none, on the load sweep's run (i) and through phase
+3p's staged engines, replays included), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --against OTHER_CHECKOUT
 
@@ -252,6 +274,16 @@ DENSE_STAGED = {"rwkv6-7b": (None, 12), "h2o-danube-3-4b": (None, 13),
                 "hymba-1.5b": (None, 14), "mixtral-8x22b": (10, 15)}
 DENSE_STAGED_RUN = ("rwkv6-7b", "h2o-danube-3-4b")
 DENSE_FRESH_PAIRS = 2
+#: phase 3p: the staged prefill's configs at full width, each with its
+#: prompts' seed and the kernel its prefill launches once a layer; phase
+#: 3's prompt lengths served ``PREFILL_PASSES`` times through one engine
+#: (pass 1 eager, pass 2 captures, pass 3 replays), with few new tokens,
+#: since prefill is what the phase measures
+PREFILL_STAGED = (("qwen2-1.5b", 16, "flash_attention"),
+                  ("rwkv6-7b", 17, "rwkv6_scan"),
+                  ("hymba-1.5b", 18, "flash_attention"))
+PREFILL_NEW_TOKENS = 4
+PREFILL_PASSES = 3
 #: phase 3s: name parts of cuBLAS's GEMM kernels on Hopper (nvjet),
 #: CUTLASS's and older cuBLAS's
 GEMM_KERNELS = ("nvjet", "gemm", "xmma")
@@ -1003,6 +1035,7 @@ def serve_phase(torch, label, cfg, prompts, ecfg, apart=(),
         "mean_round_s": sum(rounds) / len(rounds), "rounds": len(rounds),
         "decode_path": st["decode_path"], "paged_rounds": eng.paged_rounds,
         "staged": eng.staged.stats() if eng.staged else None,
+        "staged_prefill": prefill_stats(eng),
         "launches": launches, "dispatches": dispatches,
         "lmb_link_bytes": eng.kv.buf.host.fm.op_bytes(),
         "onboard_hits": c.hits, "onboard_misses": c.misses,
@@ -1083,7 +1116,10 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     seconds are part of that stage's.  Nothing is timed apart inside a
     staged step, paged or dense slot (``..._in_model_step`` stays 0
     there): a replay calls no Python, and a capture must not sync; phases
-    3s and 3d read the MoE share of a replay from its trace instead."""
+    3s and 3d read the MoE share of a replay from its trace instead.  A
+    staged prefill is timed apart where it runs eagerly (each prompt
+    length's first: here every prefill, the lengths being distinct) and
+    skipped while it is captured."""
     acc = {"prefill": 0.0, "decode_view": 0.0, "model_step": 0.0,
            "commit_decode": 0.0}
     inner = {f"{key}_in_{stage}": 0.0 for key, _, _ in apart
@@ -1092,7 +1128,9 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
 
     def timed(name, fn, into):
         def run(*args, **kw):
-            if into is not acc and stage[0] == "model_step" and staged[0]:
+            if into is not acc and (
+                    (stage[0] == "model_step" and staged[0])
+                    or torch.cuda.is_current_stream_capturing()):
                 return fn(*args, **kw)    # captured or replayed: no sync
             torch.cuda.synchronize()
             outer, t = stage[0], time.monotonic()
@@ -1138,6 +1176,9 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
         # host time of the captures: part of model_step, once per batch
         # size that recurs in the run
         out["capture_s_in_model_step"] = eng.staged.capture_s
+    if eng.staged_prefill is not None:
+        # and part of prefill, once per prompt length that recurs
+        out["capture_s_in_prefill"] = eng.staged_prefill.capture_s
     if inner:
         out["apart"] = inner
     print("  breakdown (s, summed over the run): " + json.dumps(out))
@@ -1245,7 +1286,8 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
                     for k, v in ops.dispatch_counts().items()},
         link_bytes=dict(eng.kv.buf.host.fm.op_bytes()),
         hits=tier.hits, misses=tier.misses,
-        staged=eng.staged.stats() if eng.staged else None)
+        staged=eng.staged.stats() if eng.staged else None,
+        staged_prefill=prefill_stats(eng))
     attr = "_paged_fn" if eng._use_paged else "_decode_fn"
     step_s, capture_s, fn = [], [], getattr(eng, attr)
 
@@ -1264,12 +1306,31 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
     second["step_ms"] = sorted(x * 1e3 for x in step_s)
     second["capture_ms"] = [x * 1e3 for x in capture_s]
     second["staged"] = eng.staged.stats() if eng.staged else None
+    second["staged_prefill"] = prefill_stats(eng)
     out = {"first": first, "second": second}
     if eng.staged is not None:
         out["trace"] = replay_trace(torch, eng, cfg, flags, params)
     system.close()
     del eng
     return out
+
+
+def prefill_stats(eng):
+    """A staged engine's prefill counts (None for an eager engine)."""
+    return eng.staged_prefill.stats() if eng.staged_prefill else None
+
+
+def prefill_text(staged) -> str:
+    """What the staged prefill did in phase 3s's or 3d's two runs: the
+    second run meets each prompt length again, so it captures one graph
+    a length (time that the second run's tokens/s includes)."""
+    p1, p2 = staged["first"]["staged_prefill"], \
+        staged["second"]["staged_prefill"]
+    return (f"prefill: first run {p1['eager_prefills']} eager, "
+            f"{p1['captures']} captures; second run "
+            f"{p2['captures'] - p1['captures']} captures "
+            f"({p2['capture_s'] - p1['capture_s']:.3f} s of host time), "
+            f"{p2['replays'] - p1['replays']} replays")
 
 
 def first_run_tokens_per_s(torch, cfg, flags, params, prompts, ecfg,
@@ -1306,28 +1367,36 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import layer
 
-    def device_ops(fn):
+    def device_ops(fn, attempts=3):
         # the first call is the profiler's warm-up, discarded: a trace's
-        # first operations can be lost while the tracer starts
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        # the step's own span ("ProfilerStep#1") is not an operation
-        evs = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not e.name.startswith("ProfilerStep")),
-                     key=lambda e: e.time_range.start)
-        # a fill's or copy's memory kind: "Memset (Device)" when run
-        # eagerly, "Memset (Unknown)" as a graph node
-        return [(e.name.split(" (")[0]
-                 if e.name.startswith(("Memset", "Memcpy")) else e.name,
-                 e.time_range.elapsed_us()) for e in evs]
+        # first operations can be lost while the tracer starts.  A trace
+        # can also come back with no device operation at all (seen once in
+        # a few dozen); it is taken again, since an empty sequence would
+        # match everywhere in the MoE search below
+        for _ in range(attempts):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    fn()
+                    torch.cuda.synchronize()
+                    prof.step()
+            # the step's own span ("ProfilerStep#1") is not an operation
+            evs = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith("ProfilerStep")),
+                         key=lambda e: e.time_range.start)
+            if evs:
+                # a fill's or copy's memory kind: "Memset (Device)" when
+                # run eagerly, "Memset (Unknown)" as a graph node
+                return [(e.name.split(" (")[0]
+                         if e.name.startswith(("Memset", "Memcpy"))
+                         else e.name, e.time_range.elapsed_us())
+                        for e in evs]
+        raise AssertionError(f"{attempts} traces recorded no device "
+                             "operation")
 
     if eng._use_paged:
         B = max(eng.staged.graphs)
@@ -1429,6 +1498,13 @@ def eager_and_staged(torch, cfg, flags, prompts, ecfg, pairs) -> tuple:
                                  f"eager {e1[key]}")
     if eager["second"]["streams"] != staged["second"]["streams"]:
         raise AssertionError(f"{cfg.name}: second runs' streams differ")
+    # prefill: each prompt length's first prefill eager, its second (in
+    # the second run) captured
+    lengths = len({len(p) for p, _ in prompts})
+    p1, p2 = s1["staged_prefill"], staged["second"]["staged_prefill"]
+    if p1["eager_prefills"] != lengths or p2["captures"] != lengths or \
+            p2["eager_prefills"] != lengths:
+        raise AssertionError(f"{cfg.name}: staged prefill {p1} then {p2}")
     return eager, staged, fresh
 
 
@@ -1489,7 +1565,7 @@ def staged_phase(torch, lens, news, card) -> dict:
               f"{st2['captures'] - st1['captures']} captures, "
               f"{st2['replays'] - st1['replays']} replays; pool buffer "
               f"{st2['pool_pages']} pages after {st2['regrowths']} "
-              f"regrowths")
+              f"regrowths; {prefill_text(staged)}")
         print(f"  first run tokens/s, {FRESH_PAIRS} fresh engines each, "
               f"the order alternating: eager "
               f"{[round(x, 1) for x in fresh[False]]}, staged "
@@ -1579,7 +1655,8 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
               f"captures ({st1['capture_s']:.3f} s of host time), "
               f"{st1['replays']} replays; second run "
               f"{st2['captures'] - st1['captures']} captures, "
-              f"{st2['replays'] - st1['replays']} replays")
+              f"{st2['replays'] - st1['replays']} replays; "
+              f"{prefill_text(staged)}")
         print(f"  model step per decode step (second run, synchronised): "
               f"eager {ms(eager['second']['step_ms'])}; staged replays "
               f"{ms(staged['second']['step_ms'])}; medians staged/eager "
@@ -1599,14 +1676,203 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
     return out
 
 
+def prefill_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
+    """Phase 3p's work on one engine, eager (``staged=False``) or staged:
+    ``prompts`` served ``PREFILL_PASSES`` times, with each prefill timed on
+    the host, the device synchronised around it.  The counts are reset
+    just before the first pass and read after the last, and the peak
+    device memory is the engine's (the params included)."""
+    from repro_torch.core.metrics import GLOBAL_METRICS
+    from repro_torch.kernels import cuda_build, ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng, system = make_engine(cfg, flags, params, ecfg, "cuda", staged)
+    fn, prefill_ms = eng._prefill_fn, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+        return out
+
+    eng._prefill_fn = timed
+    GLOBAL_METRICS.reset()             # the onboard tier's hits and misses
+    cuda_build.reset_launch_counts()
+    calls = ops.dispatch_counts()
+    passes = []
+    for _ in range(PREFILL_PASSES):
+        n0 = len(prefill_ms)
+        rids, _, wall = drain(eng, prompts)
+        torch.cuda.synchronize()
+        reqs = [eng.requests[r] for r in rids]
+        if not all(r.state == "done" for r in reqs):
+            raise AssertionError(f"not all done: {[r.state for r in reqs]}")
+        streams = [list(r.out_tokens) for r in reqs]
+        passes.append({
+            "streams": streams, "wall_s": wall,
+            "tokens_per_s": sum(len(x) for x in streams) / wall,
+            "mean_ttft_s": sum(r.first_token_at - r.submitted_at
+                               for r in reqs) / len(reqs),
+            "prefill_ms": prefill_ms[n0:],
+            "staged_prefill": prefill_stats(eng)})
+    tier = eng.kv.buf.metrics.tier(eng.kv.buf.name, "onboard")
+    out = {"passes": passes, "launches": cuda_build.launch_counts(),
+           "dispatches": {k: v - calls[k]
+                          for k, v in ops.dispatch_counts().items()},
+           "link_bytes": dict(eng.kv.buf.host.fm.op_bytes()),
+           "hits": tier.hits, "misses": tier.misses,
+           "paged_rounds": eng.paged_rounds,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "pool_bytes": (eng.staged_prefill.pool_bytes()
+                          if eng.staged_prefill else 0)}
+    system.close()
+    del eng
+    return out
+
+
+def staged_prefill_phase(torch, lens, card) -> dict:
+    """Phase 3p: prefill staged as the reference's
+    ``jax.jit(model.prefill)`` (one CUDA graph per prompt length), on
+    ``PREFILL_STAGED``'s full-width configs in bf16 with phase 3's engine:
+    phase 3's 8 prompt lengths, ``PREFILL_NEW_TOKENS`` new tokens each,
+    served ``PREFILL_PASSES`` times through one engine, once staged and
+    once eager (:func:`prefill_run`).  Fails unless every pass's streams,
+    and the link bytes, onboard hits and misses, launch and dispatch
+    counts of the three passes, are equal staged and eager, the prefill
+    kernel launched layers x prompts x passes in both, and the staged
+    engine prefilled pass 1 eagerly, captured one graph a length in pass
+    2 and only replayed in pass 3.  Prints the median prefill a prompt,
+    synchronised (the eager engine's, and the staged engine's pass by
+    pass), the captures, replays and their host time, the prefill graphs'
+    pool bytes, pass 3's mean TTFT and tokens/s staged beside eager, and
+    each engine's peak device memory, on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig
+
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    flags = Flags(remat=False, use_kernels=True)
+    out = {}
+    for arch, seed, kernel in PREFILL_STAGED:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        prompts = prompts_for(cfg, lens, [PREFILL_NEW_TOKENS] * len(lens),
+                              seed)
+        left = free_card(torch)
+        if left > 1.0:
+            raise AssertionError(f"{left:.2f} GiB of earlier phases still "
+                                 "on the card")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = build_model(cfg, flags, device="cuda").init(gen)
+        # warm-up: cuBLAS handles, the allocator, the kernels
+        prefill_run(torch, cfg, flags, params, [(prompts[0][0][:16], 2)],
+                    ecfg, False)
+        eager, staged = (prefill_run(torch, cfg, flags, params, prompts,
+                                     ecfg, s) for s in (False, True))
+        del params
+        for key in ("launches", "dispatches", "link_bytes", "hits",
+                    "misses", "paged_rounds"):
+            if eager[key] != staged[key]:
+                raise AssertionError(f"{arch}: staged {key} {staged[key]} "
+                                     f"!= eager {eager[key]}")
+        for k, (e, s) in enumerate(zip(eager["passes"], staged["passes"])):
+            if e["streams"] != s["streams"]:
+                raise AssertionError(f"{arch}: pass {k + 1}'s streams differ")
+        L, n = cfg.num_layers, len(prompts)
+        want = L * n * PREFILL_PASSES
+        if staged["launches"].get(kernel) != want:
+            raise AssertionError(f"{arch}: {kernel} ran "
+                                 f"{staged['launches'].get(kernel)} times, "
+                                 f"not {L} x {n} x {PREFILL_PASSES}")
+        sp = [p["staged_prefill"] for p in staged["passes"]]
+        if (sp[0]["eager_prefills"], sp[0]["captures"], sp[0]["replays"]) \
+                != (n, 0, 0) or \
+                (sp[1]["eager_prefills"], sp[1]["captures"],
+                 sp[1]["replays"]) != (n, n, n) or \
+                (sp[2]["eager_prefills"], sp[2]["captures"],
+                 sp[2]["replays"]) != (n, n, 2 * n):
+            raise AssertionError(f"{arch}: eager prefills, captures and "
+                                 f"replays by pass: {sp}")
+        med = [_pct(p["prefill_ms"], 50) for p in staged["passes"]]
+        e3, s3 = eager["passes"][-1], staged["passes"][-1]
+        print(f"phase 3p: {arch}, {L} layers, staged prefill, {n} prompt "
+              f"lengths x {PREFILL_PASSES} passes: equal streams, link "
+              f"bytes {staged['link_bytes']}, hits {staged['hits']}, misses "
+              f"{staged['misses']}, launches {staged['launches']}; pass 1 "
+              f"{sp[0]['eager_prefills']} eager, pass 2 "
+              f"{sp[1]['captures']} captures ({sp[2]['capture_s']:.3f} s "
+              f"of host time), pass 3 {sp[2]['replays'] - sp[1]['replays']}"
+              f" replays; prefill graphs' pool {staged['pool_bytes']:,} B")
+        print(f"  prefill a prompt (median, synchronised): eager engine "
+              f"{_pct(e3['prefill_ms'], 50):.3f} ms (pass 3); staged pass 1 "
+              f"eager {med[0]:.3f}, pass 2 captures {med[1]:.3f}, pass 3 "
+              f"replays {med[2]:.3f} ms; replay/eager "
+              f"{med[2] / _pct(e3['prefill_ms'], 50):.3f}")
+        print(f"  pass 3: mean TTFT eager {e3['mean_ttft_s'] * 1e3:.2f} ms, "
+              f"staged {s3['mean_ttft_s'] * 1e3:.2f} ms; tokens/s eager "
+              f"{e3['tokens_per_s']:.1f}, staged {s3['tokens_per_s']:.1f}; "
+              f"peak eager {eager['peak_gib']:.3f} GiB, staged "
+              f"{staged['peak_gib']:.3f} GiB; on {card}; "
+              f"{time.monotonic() - t0:.1f} s")
+        out[arch] = {"eager": eager, "staged": staged}
+    free_card(torch)
+    return out
+
+
+def quickstart_phase(torch) -> None:
+    """Phase 3q: ``examples/quickstart_torch.py`` run in this process on
+    the card (its L2P buffer's 8 onboard pages on the card, its LMB tier
+    in pinned host memory) and on the CPU.  Fails unless the card's run
+    used both tiers and printed the CPU run's L2P statistics and fabric
+    snapshot (hits, link bytes and the modelled link wait)."""
+    import contextlib
+    import io
+    import runpy
+    from repro_torch.core.metrics import GLOBAL_METRICS
+
+    path = ROOT / "examples" / "quickstart_torch.py"
+    t0 = time.monotonic()
+    lines = {}
+    for device in ("cuda", "cpu"):
+        GLOBAL_METRICS.reset()          # the buffer's hit ratio reads it
+        text, argv = io.StringIO(), sys.argv
+        sys.argv = [str(path), "--device", device]
+        try:
+            with contextlib.redirect_stdout(text):
+                flow = runpy.run_path(str(path), run_name="__main__")
+        finally:
+            sys.argv = argv
+        ex = flow["l2p"].executor
+        if ex.device.type != device or ex.real_host_tier != (
+                device == "cuda"):
+            raise AssertionError(f"the quickstart on {device} ran on "
+                                 f"{ex.device}, pinned host tier "
+                                 f"{ex.real_host_tier}")
+        lines[device] = [x for x in text.getvalue().splitlines()
+                         if x.startswith(("l2p stats:", "fm snapshot:"))]
+    if len(lines["cuda"]) != 2 or lines["cuda"] != lines["cpu"]:
+        raise AssertionError(f"quickstart: card {lines['cuda']} != CPU "
+                             f"{lines['cpu']}")
+    print(f"phase 3q: examples/quickstart_torch.py on the card (onboard "
+          f"pages on the card, the LMB tier in pinned host memory) and on "
+          f"the CPU: equal L2P stats and fabric snapshot; "
+          f"{lines['cuda'][0][:160]}...; {time.monotonic() - t0:.1f} s")
+
+
 def sync_refusal_phase(torch) -> None:
     """Phase 9, last (a failed capture leaves the stream it captured on
-    in no state to trust): a host sync injected into each staged step,
-    one request each, runs in the eager first step and must make the
-    engine raise at the second step's capture, with no graph made and no
-    eager step run in its place: the paged step (reduced qwen2-1.5b, so
-    B = 1 every round) and the dense slot step (reduced h2o-danube-3-4b,
-    its one slot)."""
+    in no state to trust): a host sync injected into each staged
+    function runs in its eager first call and must make the engine raise
+    at the second call's capture, with no graph made and no eager call
+    run in its place: prefill (reduced qwen2-1.5b, two requests of one
+    prompt length), the dense slot step (reduced h2o-danube-3-4b, one
+    request in its one slot) and the paged step (reduced qwen2-1.5b, one
+    request, so B = 1 every round)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import system_for
     from repro_torch.models import build_model
@@ -1614,7 +1880,7 @@ def sync_refusal_phase(torch) -> None:
     from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
     import numpy as np
 
-    def engine(arch):
+    def engine(arch, requests=1):
         model = build_model(get_config(arch).reduced(),
                             Flags(remat=False, use_kernels=True),
                             device="cuda")
@@ -1625,8 +1891,9 @@ def sync_refusal_phase(torch) -> None:
                           EngineConfig(decode_slots=2, max_seq_len=64,
                                        page_tokens=8, onboard_pages=8),
                           device_id="gpu0", device="cuda")
-        eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
-                              max_new_tokens=4))
+        for _ in range(requests):
+            eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
+                                  max_new_tokens=4))
         return eng
 
     def refused(eng, what):
@@ -1637,8 +1904,30 @@ def sync_refusal_phase(torch) -> None:
         raise AssertionError(f"a host sync inside the staged {what} did "
                              "not raise")
 
-    # the dense slot step first: the paged engine's failed capture is the
-    # script's last use of the card
+    # prefill first, then the dense slot step: the paged engine's failed
+    # capture is the script's last use of the card.  Two requests of one
+    # prompt length, both admitted in the first round: the first prefill
+    # runs eagerly, the second captures
+    eng = engine("qwen2-1.5b", requests=2)
+    prefill = eng.staged_prefill.step
+
+    def syncing_prefill(params, batch, cache):
+        int(batch["tokens"].sum())          # a host sync
+        return prefill(params, batch, cache)
+
+    eng.staged_prefill.step = syncing_prefill
+    msg = refused(eng, "prefill")
+    reqs = [eng.requests[r] for r in (0, 1)]
+    if eng.staged_prefill.captures or eng.staged_prefill.eager_prefills != 1 \
+            or [len(r.out_tokens) for r in reqs] != [1, 0]:
+        raise AssertionError(f"captures {eng.staged_prefill.captures}, eager "
+                             f"prefills {eng.staged_prefill.eager_prefills}, "
+                             f"tokens {[r.out_tokens for r in reqs]} after a "
+                             "failed capture")
+    print(f"phase 9: a host sync in the staged prefill ran in the length's "
+          f"eager first prefill and raised at its second prefill's capture "
+          f"({msg}); no graph, no eager prefill in its place")
+
     eng = engine("h2o-danube-3-4b")
     step = eng.staged.step
 
@@ -2751,6 +3040,8 @@ def main(argv=None) -> int:
     served = serve_phases(torch, lens, news, prompts)
     staged_phase(torch, lens, news, card)
     staged_dense_phase(torch, lens, news, card)
+    prefilled = staged_prefill_phase(torch, lens, card)
+    quickstart_phase(torch)
     seamless = seamless_phase(torch)
     served.update(new_serve_phases(torch, lens, news))
     swept = sweep_phase(torch, card)
@@ -2768,6 +3059,12 @@ def main(argv=None) -> int:
         k["launches"] = by_path.get(main_path, 0)
         by_path["qwen2-1.5b load sweep"] = \
             swept["pipelined"]["launches"].get(k["name"], 0)
+        for arch, res in prefilled.items():
+            # three passes of 8 prompts through one staged engine: pass 1
+            # eager, passes 2-3 counted through the graphs' replays
+            if k["name"] in res["staged"]["launches"]:
+                by_path[f"{arch} staged prefill (3p)"] = \
+                    res["staged"]["launches"][k["name"]]
         k["launches_by_path"] = by_path
     reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "rwkv6-7b", (5, 13, 20, 9, 17, 70), 128)

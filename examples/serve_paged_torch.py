@@ -8,7 +8,10 @@ share a common, page-aligned prompt prefix zero-copy (fork).
 h2o-danube-3-4b has a sliding window, so it decodes on the dense slot
 path: each request alone in its slot, the step staged as one CUDA graph
 per slot (its first step eager, its second captured, the rest replayed).
-On the CPU the same static slot caches are stepped directly.
+Prefill is staged too, one CUDA graph per prompt length, each writing
+into the engine's one static prefill cache (a length's first prefill
+eager, its second captured, the rest replayed).  On the CPU the same
+static buffers are used and the functions called directly.
 
 Run:  PYTHONPATH=src python examples/serve_paged_torch.py [--device cpu]
 """
@@ -58,6 +61,7 @@ eng.run()
 st = eng.stats()
 print("all done:", all(eng.requests[r].state == "done" for r in rids))
 print("decode path:", st["decode_path"], "staged:", eng.staged.stats())
+print("staged prefill:", eng.staged_prefill.stats())
 print("kv stats:", st["kv"])
 c = eng.kv.buf.metrics.tier(eng.kv.buf.name, "onboard")
 print(f"onboard hit ratio {c.hit_ratio:.2f}  "

@@ -266,26 +266,31 @@ def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
 def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags,
                   cache: Dict[str, Any]):
-    """Prefill trunk: loop over layers, filling a fresh cache [L, ...]."""
+    """Prefill trunk: loop over layers, filling ``cache`` [L, ...] in place
+    and returning it.  The cache is reset first, whatever it held: K/V
+    zeroed and ``pos`` -1, so slots at or past S read as never written
+    (the recurrent states are overwritten whole).  One static cache can
+    thus take every prefill of a staged engine, each length's graph
+    writing into it."""
     S = x.shape[1]
-    new_cache = dict(cache)
     keys = _layer_keys(cfg)
-    for key in keys:
-        new_cache[key] = torch.zeros_like(cache[key])
+    for key in ("k", "v"):
+        if key in cache:
+            cache[key].zero_()
     for l in range(num_layers(layers)):
         x, entries = block_prefill(layer(layers, l), cfg, x, positions, flags)
         for key in keys:
             if key in ("k", "v"):
-                _ring_fill(new_cache[key][l], entries[key],
+                _ring_fill(cache[key][l], entries[key],
                            cache[key].shape[2])           # in place
             else:
-                new_cache[key][l] = entries[key]          # in place
-    new_cache["step"] = torch.full_like(cache["step"], S)
+                cache[key][l] = entries[key]              # in place
+    cache["step"].fill_(S)
     if "pos" in cache:
-        pos = cache["pos"].clone()
-        _ring_fill(pos, positions.to(torch.int32), pos.shape[1])
-        new_cache["pos"] = pos
-    return x, new_cache
+        cache["pos"].fill_(-1)
+        _ring_fill(cache["pos"], positions.to(torch.int32),
+                   cache["pos"].shape[1])
+    return x, cache
 
 
 def block_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,

@@ -118,8 +118,11 @@ class Model:
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache: Dict[str, Any]):
         """Prompt pass; returns (last-token logits [B, V], filled cache).
-        An encoder-decoder encodes ``batch["src_emb"]`` [B, S_src, D] and
-        takes ``batch["tokens"]`` as the target prefix."""
+        A decoder-only model resets ``cache`` and fills it in place (the
+        returned cache is ``cache``), so a staged engine prefills every
+        prompt into one static cache.  An encoder-decoder encodes
+        ``batch["src_emb"]`` [B, S_src, D], takes ``batch["tokens"]`` as
+        the target prefix and returns a new cache."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed_lookup(params["embed"], tokens)

@@ -18,23 +18,25 @@ later round, SHED rejects it outright (state "shed").  Completed request
 latencies feed the tenant's SLO tracker, closing the loop.
 
 PyTorch port of ``repro.serve.engine``: where the reference stages its
-decode steps with ``jax.jit``, the port captures them as CUDA graphs
-(``serve/staged.py``): the paged step one graph per batch size, the dense
-slot step one graph per decode slot, each slot holding a static cache
-that a request's prefilled cache is copied into when it is seated.
-``staged=False`` runs either step eagerly.  Prefill runs eagerly.  Greedy
-argmax runs on the device with one host sync per paged round, and one
-per request and step on the dense slot path, as the reference's; the
-engine runs on the model's device (CUDA unless built with
-``device="cpu"``).  The
-deprecated positional ``submit(prompt, ...)`` shim is not ported:
-``submit`` takes a :class:`SubmitSpec`.
+prefill and decode steps with ``jax.jit``, the port captures them as CUDA
+graphs (``serve/staged.py``): prefill one graph per prompt length, all
+writing into one static prefill cache; the paged step one graph per
+batch size; the dense slot step one graph per decode slot, each slot
+holding a static cache that a request's prefilled cache is copied into
+when it is seated.  ``staged=False`` runs prefill and both steps eagerly.
+Greedy argmax runs on the device with one host sync per prefill, one per
+paged round, and one per request and step on the dense slot path, as the
+reference's; the engine runs on the model's device (CUDA unless built
+with ``device="cpu"``).  ``submit`` takes a :class:`SubmitSpec`; the
+reference's deprecated ``submit(prompt, max_new_tokens=, tenant=)`` works
+too, with a ``DeprecationWarning``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Callable, Dict, List, Optional, Union
 
@@ -49,7 +51,7 @@ from repro_torch.models.zoo import Model
 from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, SpanTracer
 from repro_torch.qos.slo import AdmissionController, Decision
 from repro_torch.serve.kv_cache import PagedKVStore
-from repro_torch.serve.staged import StagedSlots, StagedStep
+from repro_torch.serve.staged import StagedPrefill, StagedSlots, StagedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,17 +245,24 @@ class ServeEngine:
         self.requests: Dict[int, Request] = {}
         self._next_req = 0
         self._slot_free = list(range(ecfg.decode_slots))[::-1]
-        self._prefill_fn = model.prefill
         self._decode_fn = model.decode_step
         #: paged decode: the batched pool-direct step (retires the dense
         #: slot cache for decode); dense stays for uncovered archs
         self._use_paged = (ecfg.paged_decode
                            and model.supports_paged_decode())
         self._max_pages = -(-ecfg.max_seq_len // ecfg.page_tokens)
-        #: the decode step staged as the reference's jax.jit stages it: the
-        #: paged step one CUDA graph per batch size, the dense slot step
-        #: one per slot (static buffers alone on the CPU); ``staged=False``
-        #: runs the step eagerly, for comparison on the card
+        #: prefill and the decode step staged as the reference's jax.jit
+        #: stages them: prefill one CUDA graph per prompt length, the paged
+        #: step one per batch size, the dense slot step one per slot
+        #: (static buffers alone on the CPU); ``staged=False`` runs them
+        #: eagerly, for comparison on the card
+        self.staged_prefill: Optional[StagedPrefill] = None
+        self._prefill_fn = self._prefill_eager
+        if staged:
+            self.staged_prefill = self._prefill_fn = StagedPrefill(
+                model.prefill,
+                lambda: model.init_cache(1, ecfg.max_seq_len),
+                max_seq_len=ecfg.max_seq_len, device=self.device)
         self.staged: Union[StagedStep, StagedSlots, None] = None
         self._paged_fn = None
         if self._use_paged:
@@ -273,11 +282,21 @@ class ServeEngine:
         self.paged_rounds = 0
 
     # -------------------------------------------------------------- intake
-    def submit(self, spec: SubmitSpec) -> int:
-        """Enqueue one request described by a :class:`SubmitSpec`."""
+    def submit(self, spec: Union[SubmitSpec, np.ndarray],
+               max_new_tokens: int = 16, tenant: str = "default") -> int:
+        """Enqueue one request described by a :class:`SubmitSpec`.
+
+        The pre-redesign ``submit(prompt, max_new_tokens=..., tenant=...)``
+        signature still works as a deprecated shim (the positional
+        prompt is wrapped into a spec) so out-of-tree callers keep
+        running; in-repo callers all pass specs."""
         if not isinstance(spec, SubmitSpec):
-            raise TypeError(f"submit takes a SubmitSpec, not "
-                            f"{type(spec).__name__}")
+            warnings.warn(
+                "ServeEngine.submit(prompt, ...) is deprecated; pass a "
+                "SubmitSpec (typed submission surface)",
+                DeprecationWarning, stacklevel=2)
+            spec = SubmitSpec(prompt=spec, max_new_tokens=max_new_tokens,
+                              tenant=tenant)
         rid = self._next_req
         self._next_req += 1
         arrived = (self.clock() if spec.arrival_time_s is None
@@ -294,13 +313,19 @@ class ServeEngine:
         return rid
 
     # ----------------------------------------------------------- prefill
-    def _prefill(self, req: Request) -> None:
+    def _prefill_eager(self, params, tokens):
+        """``Model.prefill`` of ``tokens`` [1, S] into a fresh cache."""
         cache = self.model.init_cache(1, self.ecfg.max_seq_len)
-        # prefill runs at prompt length; the dense cache covers max_seq_len
-        toks = torch.as_tensor(req.prompt[None], dtype=torch.int32,
-                               device=self.device)
-        logits, cache = self._prefill_fn(self.params, {"tokens": toks},
-                                         cache)
+        return self.model.prefill(
+            params, {"tokens": tokens.to(self.device)}, cache)
+
+    def _prefill(self, req: Request) -> None:
+        # prefill runs at prompt length; the dense cache covers max_seq_len.
+        # A staged prefill's cache is the one static cache: its pages are
+        # copied into the KV store here, and the whole cache into the
+        # request's decode slot when it is seated, before the next prefill
+        toks = torch.as_tensor(req.prompt[None], dtype=torch.int32)
+        logits, cache = self._prefill_fn(self.params, toks)
         req.seq_id = self.kv.new_seq()
         kv = self._cache_to_pages(cache, len(req.prompt))
         if kv is not None:

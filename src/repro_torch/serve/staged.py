@@ -1,13 +1,14 @@
-"""The engine's decode steps staged once and replayed as CUDA graphs.
+"""The engine's prefill and decode steps staged once and replayed as CUDA
+graphs.
 
 Counterpart of ``repro/serve/engine.py:204-211``, where the reference
-stages each engine step with ``jax.jit`` (``_decode_fn =
-jax.jit(model.decode_step)``, ``_paged_fn =
-jax.jit(model.decode_step_paged)``) and then dispatches the whole step as
-one program every round.  Eager PyTorch issues every op of every layer
-from Python instead; here each step is captured as a CUDA graph and
-replayed.  A graph holds the port's own kernels and PyTorch's ops as the
-eager step issues them: it is neither ``torch.compile`` nor a library
+stages each engine function with ``jax.jit`` (``_prefill_fn =
+jax.jit(model.prefill)``, ``_decode_fn = jax.jit(model.decode_step)``,
+``_paged_fn = jax.jit(model.decode_step_paged)``) and then dispatches the
+whole function as one program each call.  Eager PyTorch issues every op
+of every layer from Python instead; here each is captured as a CUDA graph
+and replayed.  A graph holds the port's own kernels and PyTorch's ops as
+the eager call issues them: it is neither ``torch.compile`` nor a library
 kernel.
 
 :class:`StagedStep` stages the paged step (``Model.decode_step_paged``),
@@ -44,15 +45,27 @@ copied out when it is preempted; the cache's ``step`` is a device
 tensor that the step advances in place, so a replay writes the new
 token's K/V at the right slot of the ring and the next replay moves on.
 
-Both count steps the same way.  A batch size's (a slot's) first step
-runs eagerly on the static buffers, so a shape seen once costs what the
-eager step costs (and that step is the warm-up capture needs).  The
-second captures the step, with nothing run, and replays the graph for
-that step's result: the step's in-place writes happen once.  Every later
-step replays.  All graphs of a staged step share one memory pool
-(``torch.cuda.graph_pool_handle``): they never run at once, and each
-step's logits are read before the next replay.  A capture that fails
-raises: there is no eager fallback on the card.  The graphs read the
+:class:`StagedPrefill` stages ``Model.prefill``, which the reference
+runs at the prompt's exact length (it pads the tokens to a bucket, then
+passes ``toks[:, :len(prompt)]``), so ``jax.jit`` keeps one executable per
+length and this keeps one graph per length S.  Its static input is a
+token buffer ``[1, max_seq_len]`` int32, of which a prefill at S reads
+``[:, :S]``; its static output is **one** prefill cache
+(``model.init_cache(1, max_seq_len)``) for every length, which the
+prefill resets and fills in place (``trunk_prefill``), so no graph keeps
+a cache of its own.  The engine copies what it needs out of that cache
+before the next prefill: its pages into the KV store, or its whole cache
+into a decode slot's (:meth:`StagedSlots.seat`).
+
+All three count calls the same way.  A batch size's (a slot's, a prompt
+length's) first call runs eagerly on the static buffers, so a shape seen
+once costs what the eager call costs (and that call is the warm-up
+capture needs).  The second captures the call, with nothing run, and
+replays the graph for that call's result: its in-place writes happen
+once.  Every later call replays.  All graphs of a staged function share
+one memory pool (``torch.cuda.graph_pool_handle``): they never run at
+once, and each call's logits are read before the next replay.  A capture
+that fails raises: there is no eager fallback on the card.  The graphs read the
 params at the addresses they were captured with, so params are updated
 in place; a call with other tensors raises.  Kernel launches and
 dispatcher calls are counted by Python code (``cuda_build.LAUNCHES``,
@@ -130,6 +143,15 @@ class _Staged:
             raise ValueError("the captured graphs read the params at the "
                              "addresses they were captured with: update "
                              "params in place")
+
+    def pool_bytes(self) -> int:
+        """Device bytes held by the graphs' memory pool (0 on the CPU):
+        what the captures' intermediates and outputs pin."""
+        if self._mempool is None:
+            return 0
+        pool = tuple(self._mempool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def _replay(self, staged: _Graph) -> torch.Tensor:
         staged.graph.replay()
@@ -323,4 +345,48 @@ class StagedSlots(_Staged):
             if state.graph is not None:
                 return self._replay(state.graph), state.cache
         self.eager_steps += 1
+        return self.step(*args)
+
+
+class StagedPrefill(_Staged):
+    """``step`` (``Model.prefill``) behind a static token buffer and one
+    static prefill cache, captured once per recurring prompt length S on
+    a CUDA device.  Called as ``(params, tokens [1, S] int32) -> (logits
+    [1, V], cache)``, where ``cache`` is the static cache, filled for this
+    prompt and valid until the next call.  ``init_cache()`` makes the
+    cache (B = 1, ``max_seq_len`` slots)."""
+
+    def __init__(self, step: Callable, init_cache: Callable[[], dict], *,
+                 max_seq_len: int, device):
+        super().__init__(step, device)
+        self.tokens = torch.zeros((1, max_seq_len), dtype=torch.int32,
+                                  device=self.device)
+        self.cache = init_cache()
+        self.graphs: Dict[int, _Graph] = {}
+        #: prefills run at each prompt length (eager, captured, replayed)
+        self.prefills: Dict[int, int] = {}
+        self.eager_prefills = 0
+
+    def stats(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager_prefills": self.eager_prefills,
+                "prefills": dict(sorted(self.prefills.items())),
+                "capture_s": self.capture_s}
+
+    def __call__(self, params, tokens):
+        self._check_params(params)
+        S = tokens.shape[-1]
+        if tokens.shape != (1, S) or not 0 < S <= self.tokens.shape[1]:
+            raise ValueError(f"tokens {tuple(tokens.shape)}, want (1, S) "
+                             f"with 0 < S <= {self.tokens.shape[1]}")
+        self.tokens[:, :S].copy_(tokens)
+        self.prefills[S] = self.prefills.get(S, 0) + 1
+        args = (params, {"tokens": self.tokens[:, :S]}, self.cache)
+        if self.device.type == "cuda":
+            staged = self.graphs.get(S)
+            if staged is None and self.prefills[S] > 1:
+                staged = self.graphs[S] = self._capture(args)
+            if staged is not None:
+                return self._replay(staged), self.cache
+        self.eager_prefills += 1
         return self.step(*args)
