@@ -148,16 +148,24 @@ Phases (any failure raises and the script exits non-zero):
      backward).  6a: full-width qwen2-1.5b in bf16, 6 steps of 8 x 256
      tokens in 2 microbatches, int8 error-feedback compression, its
      24,702,574,596 B of optimizer state parked in pinned host memory
-     between steps; each step's page-in, forward and backward,
-     compression, AdamW and page-out timed apart, the bytes moved each way
-     (which must equal the state's), the tier of every parked leaf (which
-     must be pinned host), device memory between steps (which must be
-     under the state's size) and at peak, every loss finite.  6b: five
-     reduced configs in f32 trained 5 steps on the card and on the CPU
-     from the same params must give the same losses (1e-5 relative) and
-     params.  6c: a run stopped by the failure injector and resumed from
-     its checkpoint gives the uninterrupted run's losses, and the loss
-     falls over 30 steps.
+     between steps; run staged (step 0 eager, step 1 captured as one CUDA
+     graph with the page moves inside it, steps 2-5 replayed), then
+     eager; each step's mode and time (an eager step's page-in, forward
+     and backward, compression, AdamW and page-out apart), the bytes
+     moved each way (which must equal the state's), the tier of every
+     parked leaf (which must be pinned host), device memory allocated
+     between steps (which must be under the state's size) and reserved,
+     the graph pool's bytes and each run's peak, every loss finite, and
+     staged losses within 1e-5 relative of eager's (params within
+     ``PARAM_TOL``; whether bitwise equal is printed).  6d: one step
+     with the state on the card traced with ``torch.profiler``, eager and
+     replayed: wall, device busy time, operations, idle share and the
+     gaps between operations.  6b: five reduced configs in f32 trained 5
+     steps staged on the card and eagerly on the CPU from the same params
+     must give the same losses (1e-5 relative) and params.  6c: a staged
+     run stopped by the failure injector and resumed from its checkpoint
+     gives the uninterrupted run's losses, and the loss falls over 30
+     steps.
   7. the load sweep through ``repro_torch.serve.loadgen`` (after phase 4i
      and phase 5 respectively).  7a: full-width qwen2-1.5b in bf16 with
      the kernels on, two tenants (Poisson and bursty, 16 requests each at
@@ -193,13 +201,17 @@ Phases (any failure raises and the script exits non-zero):
      argument bytes must equal the real tensors' ``nbytes`` and the
      predicted peak must lie within 10 % (decode) and 20 % (train) of the
      rise in ``torch.cuda.max_memory_allocated()`` over the step; each
-     prints the measured step time beside the roofline's and their ratio.
+     prints the measured step time beside the roofline's and their ratio,
+     and the train step also its time replayed through
+     ``StagedTrainStep``.
   9. last: a host sync injected into the staged prefill (reduced
      qwen2-1.5b), then into the staged dense slot step (reduced
-     h2o-danube-3-4b), then into the staged paged step (reduced
-     qwen2-1.5b), must make the engine raise at capture (a prompt
-     length's second prefill, a slot's second step, the second round at a
-     batch size), with no graph made and no eager call run instead.
+     h2o-danube-3-4b), then into the staged train step (reduced
+     qwen2-1.5b through the launcher), then into the staged paged step
+     (reduced qwen2-1.5b), must make the engine or the launcher raise at
+     capture (a prompt length's second prefill, a slot's second step, the
+     second train step, the second round at a batch size), with no graph
+     made and no eager call run instead.
 
 Each phase's prompts are drawn from its model's vocabulary, and each
 serve phase starts from a card that the previous one's params have left.
@@ -1871,8 +1883,9 @@ def sync_refusal_phase(torch) -> None:
     at the second call's capture, with no graph made and no eager call
     run in its place: prefill (reduced qwen2-1.5b, two requests of one
     prompt length), the dense slot step (reduced h2o-danube-3-4b, one
-    request in its one slot) and the paged step (reduced qwen2-1.5b, one
-    request, so B = 1 every round)."""
+    request in its one slot), the train step (reduced qwen2-1.5b through
+    the launcher, the sync in its first two steps) and the paged step
+    (reduced qwen2-1.5b, one request, so B = 1 every round)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import system_for
     from repro_torch.models import build_model
@@ -1946,6 +1959,38 @@ def sync_refusal_phase(torch) -> None:
     print(f"phase 9: a host sync in the staged dense slot step ran in the "
           f"slot's eager first step and raised at the second step's "
           f"capture ({msg}); no graph, no eager step in its place")
+
+    # the train step, through the launcher (reduced qwen2-1.5b): its first
+    # step runs eagerly, its second captures
+    from repro_torch.launch import train
+    make, calls = train.make_train_step_, []
+
+    def syncing_train(*args, **kw):
+        step_ = make(*args, **kw)
+
+        def step(params, opt_state, batch, out, clock=None):
+            calls.append(torch.cuda.is_current_stream_capturing())
+            int(batch["tokens"].sum())      # a host sync
+            return step_(params, opt_state, batch, out, clock)
+        return step
+
+    train.make_train_step_ = syncing_train
+    try:
+        train.run("qwen2-1.5b", steps=3, global_batch=4, seq_len=32,
+                  verbose=False, device="cuda")
+    except RuntimeError as exc:
+        msg = str(exc).splitlines()[0][:160]
+    else:
+        raise AssertionError("a host sync inside the staged train step did "
+                             "not raise")
+    finally:
+        train.make_train_step_ = make
+    if calls != [False, True]:
+        raise AssertionError(f"the train step ran {len(calls)} times "
+                             f"(capturing: {calls}) around a failed capture")
+    print(f"phase 9: a host sync in the staged train step ran in the eager "
+          f"first step and raised at the second step's capture ({msg}); no "
+          f"graph, no eager step in its place")
 
     eng = engine("qwen2-1.5b")
     step = eng.staged.step
@@ -2330,11 +2375,9 @@ def _gbps(nbytes: int, s: float) -> float:
     return nbytes / s / 1e9 if s > 0 else float("inf")
 
 
-def train_phase(torch, card: str) -> dict:
-    """6a: full-width qwen2-1.5b trained through the launcher, its
-    optimizer state parked in pinned host memory between steps."""
-    import math
-    from repro_torch.core.offload import PINNED_HOST
+def train_run(torch, staged: bool) -> dict:
+    """One 6a run of the launcher from a card that earlier phases have
+    left: its output, wall time with set-up, kernel launches and peak."""
     from repro_torch.kernels import cuda_build
     from repro_torch.launch import train
 
@@ -2346,50 +2389,114 @@ def train_phase(torch, card: str) -> dict:
     cuda_build.reset_launch_counts()
     t = time.monotonic()
     out = train.run("qwen2-1.5b", reduced=False, verbose=False,
-                    **TRAIN_RUN)
-    total = time.monotonic() - t
-    launches = cuda_build.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    state, log = out["state_bytes"], out["step_log"]
-    print(f"phase 6a: qwen2-1.5b full width, bf16, {TRAIN_RUN}; optimizer "
-          f"state {state:,} B (predicted {QWEN_STATE_BYTES:,}), LMB pool "
-          f"{out['pool_gib']} GiB; set-up {total - out['wall_s']:.1f} s "
+                    staged=staged, **TRAIN_RUN)
+    out["total_s"] = time.monotonic() - t
+    out["launches"] = cuda_build.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def print_train_run(label: str, out: dict, card: str) -> None:
+    """6a's lines for one run: set-up, then per step its mode and time
+    (an eager step's stages apart), the bytes each way, where the state
+    is parked and the device memory allocated and reserved after it."""
+    log = out["step_log"]
+    print(f"  {label}: set-up {out['total_s'] - out['wall_s']:.1f} s "
           f"(params, pinned slab, first page-out), {len(log)} steps "
           f"{out['wall_s']:.1f} s on {card}")
     for rec in log:
         tm, mv = rec["times"], rec["moved"]
-        stages = ", ".join(f"{k} {tm[k] * 1e3:.1f}" for k in TRAIN_STAGES)
-        print(f"  step {rec['step']}: loss {rec['loss']:.4f}, "
-              f"{rec['s'] * 1e3:.1f} ms ({stages} ms); in "
-              f"{mv['to_device']:,} B at "
-              f"{_gbps(mv['to_device'], tm['page_in']):.1f} GB/s, out "
-              f"{mv['to_host']:,} B at "
-              f"{_gbps(mv['to_host'], tm['page_out']):.1f} GB/s; parked "
-              f"{'/'.join(rec['parked_tiers'])}, device "
-              f"{rec['device_bytes'] / 2**30:.2f} GiB")
-    print(f"  peak device memory {peak:.2f} GiB; kernel launches "
-          f"{launches or 'none'} (the training path runs the plain "
-          f"versions, as the reference's)")
+        if tm:
+            how = "; ".join([
+                ", ".join(f"{k} {tm[k] * 1e3:.1f}" for k in TRAIN_STAGES)
+                + " ms", f"in {_gbps(mv['to_device'], tm['page_in']):.1f} "
+                f"GB/s, out {_gbps(mv['to_host'], tm['page_out']):.1f} "
+                "GB/s"])
+        else:
+            how = "one graph: page-in, step and page-out"
+        print(f"    step {rec['step']} {rec['mode']}: loss "
+              f"{rec['loss']:.4f}, {rec['s'] * 1e3:.1f} ms ({how}); in "
+              f"{mv['to_device']:,} B, out {mv['to_host']:,} B; parked "
+              f"{'/'.join(rec['parked_tiers'])}; device allocated "
+              f"{rec['device_bytes'] / 2**30:.2f} GiB, reserved "
+              f"{rec['device_reserved'] / 2**30:.2f} GiB")
+    print(f"    peak device memory {out['peak_gib']:.2f} GiB; kernel "
+          f"launches {out['launches'] or 'none'}")
+
+
+def check_train_run(label: str, out: dict) -> None:
+    import math
+    from repro_torch.core.offload import PINNED_HOST
+    state = out["state_bytes"]
     if state != QWEN_STATE_BYTES:
         raise AssertionError(f"state {state} B != {QWEN_STATE_BYTES}")
-    for rec in log:
+    for rec in out["step_log"]:
         if rec["moved"] != {"to_device": state, "to_host": state}:
-            raise AssertionError(f"step {rec['step']} moved {rec['moved']}")
+            raise AssertionError(f"{label} step {rec['step']} moved "
+                                 f"{rec['moved']}")
         if rec["parked_tiers"] != [PINNED_HOST]:
-            raise AssertionError(f"step {rec['step']}: state parked in "
-                                 f"{rec['parked_tiers']}")
+            raise AssertionError(f"{label} step {rec['step']}: state parked "
+                                 f"in {rec['parked_tiers']}")
         if not rec["device_bytes"] < state:
-            raise AssertionError(f"step {rec['step']}: "
+            raise AssertionError(f"{label} step {rec['step']}: "
                                  f"{rec['device_bytes']} B on the card "
                                  "between steps")
     if not all(math.isfinite(x) for x in out["losses"]):
-        raise AssertionError(f"losses {out['losses']}")
-    if launches:
-        raise AssertionError(f"training launched kernels {launches}")
+        raise AssertionError(f"{label} losses {out['losses']}")
+    if out["launches"]:
+        raise AssertionError(f"{label} training launched kernels "
+                             f"{out['launches']}")
+
+
+def train_phase(torch, card: str) -> dict:
+    """6a: full-width qwen2-1.5b trained through the launcher, its
+    optimizer state parked in pinned host memory between steps: staged
+    (step 0 eager, step 1 captured, the rest replayed, the page moves
+    inside the graph), then the same run eager; staged losses and params
+    held to eager's."""
+    staged = train_run(torch, staged=True)
+    print(f"phase 6a: qwen2-1.5b full width, bf16, {TRAIN_RUN}; optimizer "
+          f"state {staged['state_bytes']:,} B (predicted "
+          f"{QWEN_STATE_BYTES:,}), LMB pool {staged['pool_gib']} GiB; "
+          f"staged, then eager (the training path runs the plain versions, "
+          f"as the reference's)")
+    print_train_run("staged", staged, card)
+    st = staged["staged"]
+    print(f"    graph pool {st['pool_bytes']:,} B; {st['eager_steps']} eager "
+          f"step, {st['captures']} capture ({st['capture_s']:.2f} s of "
+          f"host), {st['replays']} replays (the capture's own included)")
+    check_train_run("staged", staged)
+    modes = [r["mode"] for r in staged["step_log"]]
+    want = ["eager", "capture"] + ["replay"] * (TRAIN_RUN["steps"] - 2)
+    if modes != want:
+        raise AssertionError(f"staged modes {modes}, want {want}")
+    staged_params = _to(staged["params"], "cpu")
+    s_losses, s_log = staged["losses"], staged["step_log"]
+    s_peak, pool = staged["peak_gib"], st["pool_bytes"]
+    del staged
+    eager = train_run(torch, staged=False)
+    print_train_run("eager", eager, card)
+    check_train_run("eager", eager)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses,
+                                                  eager["losses"]))
+    gap = _param_gap(staged_params, eager["params"], 1e-3,
+                     TRAIN_RUN["steps"])
+    bitwise = s_losses == eager["losses"] and all(
+        torch.equal(a, b.cpu()) for a, b in zip(_leaves(staged_params),
+                                                _leaves(eager["params"])))
+    print(f"  staged against eager: losses max rel err {rel:.3e} (within "
+          f"{LOSS_TOL:g}), params max abs err {gap:.3e}; bitwise equal: "
+          f"{bitwise}")
+    if not rel <= LOSS_TOL:
+        raise AssertionError(f"staged losses {s_losses} against eager "
+                             f"{eager['losses']}")
+    log = eager["step_log"]
     steady = log[1:] or log
     med = lambda xs: sorted(xs)[len(xs) // 2]
+    state = eager["state_bytes"]
+    replays = [r["s"] * 1e3 for r in s_log if r["mode"] == "replay"]
     result = {
-        "losses": out["losses"], "state_bytes": state,
+        "losses": eager["losses"], "state_bytes": state,
         "step_ms": med([r["s"] * 1e3 for r in steady]),
         "stage_ms": {k: med([r["times"][k] * 1e3 for r in steady])
                      for k in TRAIN_STAGES},
@@ -2397,10 +2504,16 @@ def train_phase(torch, card: str) -> dict:
                         for r in steady]),
         "out_gbps": med([_gbps(state, r["times"]["page_out"])
                          for r in steady]),
-        "peak_gib": peak,
+        "peak_gib": eager["peak_gib"],
         "parked_gib": max(r["device_bytes"] for r in log) / 2**30,
-        "setup_s": total - out["wall_s"], "launches": launches}
-    del out
+        "setup_s": eager["total_s"] - eager["wall_s"],
+        "launches": eager["launches"], "replay_ms": med(replays),
+        "staged_peak_gib": s_peak, "pool_bytes": pool,
+        "staged_parked_gib": max(r["device_bytes"] for r in s_log) / 2**30,
+        "staged_reserved_gib": max(r["device_reserved"]
+                                   for r in s_log[1:]) / 2**30,
+        "bitwise": bitwise}
+    del eager
     free_card(torch)
     return result
 
@@ -2428,9 +2541,9 @@ def train_reference_phase(torch) -> None:
     from repro_torch.models import build_model
     from repro_torch.models.flags import Flags
 
-    print(f"phase 6b: reduced f32 training, card against CPU, 5 steps "
-          f"(losses within {LOSS_TOL:g} relative, params within "
-          f"{PARAM_TOL:g})")
+    print(f"phase 6b: reduced f32 training, staged on the card against "
+          f"eager on the CPU, 5 steps (losses within {LOSS_TOL:g} "
+          f"relative, params within {PARAM_TOL:g})")
     for arch in TRAIN_ARCHS:
         kw = dict(steps=5, global_batch=4, seq_len=32, grad_accum=2,
                   compress_grads=arch == "qwen2-1.5b", offload_opt=True,
@@ -2438,42 +2551,89 @@ def train_reference_phase(torch) -> None:
         cfg = get_config(arch).reduced()
         params = build_model(cfg, Flags(remat=False), device="cpu").init(
             torch.Generator().manual_seed(0))
-        cpu = train.run(arch, device="cpu", init_params=params, **kw)
+        cpu = train.run(arch, device="cpu", init_params=params,
+                        staged=False, **kw)
         gpu = train.run(arch, device="cuda",
                         init_params=_to(params, "cuda"), **kw)
         rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["losses"],
                                                       cpu["losses"]))
         gap = _param_gap(gpu["params"], cpu["params"], 1e-3, 5)
+        modes = [r["mode"] for r in gpu["step_log"]]
         print(f"  {arch}: losses {[round(x, 5) for x in gpu['losses']]}, "
-              f"max rel err {rel:.3e}; params max abs err {gap:.3e}")
+              f"max rel err {rel:.3e}; params max abs err {gap:.3e}; "
+              f"card steps {'/'.join(modes)}")
         if not rel <= LOSS_TOL:
             raise AssertionError(f"{arch}: losses {gpu['losses']} against "
                                  f"{cpu['losses']}")
+        if modes != ["eager", "capture", "replay", "replay", "replay"]:
+            raise AssertionError(f"{arch}: card steps {modes}")
+
+
+def traced_ops(torch, fn) -> list:
+    """``fn``'s device operations under ``torch.profiler`` as (name, start
+    us, duration us), in start order; ``fn`` runs twice and the first run
+    is the profiler's warm-up, discarded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")),
+                  key=lambda o: o[1])
+
+
+def trace_text(ops, wall: float) -> tuple:
+    """(line, figures) of a traced step: busy time, operations, idle
+    share against the timed step's wall, and the gaps between
+    consecutive operations (sum, median, largest)."""
+    busy = sum(d for _, _, d in ops) / 1e3
+    gaps = sorted(max(0.0, b[1] - (a[1] + a[2])) / 1e3
+                  for a, b in zip(ops, ops[1:]))
+    fig = {"wall_ms": wall, "busy_ms": busy, "ops": len(ops),
+           "idle_share": (1 - busy / wall) if ops else float("nan"),
+           "gap_ms": sum(gaps),
+           "median_gap_us": gaps[len(gaps) // 2] * 1e3 if gaps else 0.0,
+           "max_gap_ms": gaps[-1] if gaps else 0.0}
+    line = (f"wall {wall:.1f} ms, device busy {busy:.1f} ms in {len(ops)} "
+            f"device operations (profiled step), idle share "
+            f"{fig['idle_share']:.3f}; gaps between operations "
+            f"{fig['gap_ms']:.1f} ms in all, median "
+            f"{fig['median_gap_us']:.1f} us, largest "
+            f"{fig['max_gap_ms']:.2f} ms")
+    return line, fig
 
 
 def train_profile_phase(torch) -> dict:
     """6d: where a full-width training step's compute goes.  The
     launcher's train step on qwen2-1.5b with its state on the card (no
-    paging: the compute part of a 6a step), two steps to warm up, one
-    timed, one under ``torch.profiler``: the device's busy time (kernels,
-    copies, fills) against the timed step's wall gives the idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    paging: the compute part of a 6a step): eagerly, two steps to warm
+    up, one timed, one under ``torch.profiler``; then staged on the same
+    params and state (``StagedTrainStep``: one eager step, the capture,
+    one replay timed, one traced).  The device's busy time against the
+    timed step's wall gives each one's idle share."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.models.flags import Flags
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import (StepClock, make_train_step,
-                                        opt_state_init)
+                                        make_train_step_, opt_state_init)
+    from repro_torch.train.staged import StagedTrainStep
 
     cfg = get_config("qwen2-1.5b")
     S, Bg = TRAIN_RUN["seq_len"], TRAIN_RUN["global_batch"]
     model = build_model(cfg, Flags(remat=False, attn_chunk=S))
     params = model.init(torch.Generator("cuda").manual_seed(0))
     opt = opt_state_init(params, True)
-    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                              total_steps=6),
-                           TRAIN_RUN["grad_accum"], True)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=6)
+    step = make_train_step(model, ocfg, TRAIN_RUN["grad_accum"], True)
     data = SyntheticLM(DataConfig(cfg.vocab_size, S, Bg))
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
     for _ in range(2):
@@ -2482,30 +2642,54 @@ def train_profile_phase(torch) -> dict:
     t = time.perf_counter()
     params, opt, _ = step(params, opt, batch, clock)
     wall = (time.perf_counter() - t) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        params, opt, _ = step(params, opt, batch)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    # the trees live only here while the traced steps replace them: a
+    # step holds the old state and the new, and a third copy would not fit
+    trees = [params, opt]
+    del params, opt
+
+    def eager_step():
+        trees[0], trees[1], _ = step(trees[0], trees[1], batch)
+    ops = traced_ops(torch, eager_step)
+    params, opt = trees
+    del trees
     by_op = {}
-    for e in dev:
-        by_op[e.name] = by_op.get(e.name, 0.0) + \
-            e.time_range.elapsed_us() / 1e3
+    for name, _, us in ops:
+        by_op[name] = by_op.get(name, 0.0) + us / 1e3
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
     stages = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in clock.times.items())
-    print(f"phase 6d: one qwen2-1.5b train step, state on the card: wall "
-          f"{wall:.1f} ms ({stages} ms); device busy {busy:.1f} ms in "
-          f"{len(dev)} device operations (profiled step), idle share "
-          f"{(1 - busy / wall) if dev else float('nan'):.3f}")
-    for name, ms in top:
-        print(f"  {ms:8.2f} ms  {name[:100]}")
-    if not dev:
+    line, eager = trace_text(ops, wall)
+    print(f"phase 6d: one qwen2-1.5b train step, state on the card, eager: "
+          f"{line}; stages {stages} ms")
+    for name, ms_ in top:
+        print(f"  {ms_:8.2f} ms  {name[:100]}")
+    if not ops:
         print("  the profiler recorded no device time: not measured")
-    result = {"wall_ms": wall, "busy_ms": busy, "ops": len(dev),
-              "stage_ms": {k: v * 1e3 for k, v in clock.times.items()}}
-    del params, opt, step, prof
+
+    free_card(torch)
+    staged = StagedTrainStep(make_train_step_(
+        model, ocfg, TRAIN_RUN["grad_accum"], True), batch, device="cuda")
+    modes = [staged(params, opt, batch)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    modes.append(staged(params, opt, batch)[1])
+    torch.cuda.synchronize()
+    rwall = (time.perf_counter() - t) * 1e3
+    rops = traced_ops(torch, lambda: staged(params, opt, batch))
+    line, replay = trace_text(rops, rwall)
+    print(f"  staged, replayed: {line}; steps {'/'.join(modes)}, capture "
+          f"{staged.capture_s:.2f} s of host, graph pool "
+          f"{staged.pool_bytes():,} B, device allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    if modes != ["eager", "capture", "replay"]:
+        raise AssertionError(f"staged steps {modes}")
+    if not rops:
+        print("  the profiler recorded no device time in the replay: not "
+              "measured")
+    result = {**eager, "stage_ms": {k: v * 1e3
+                                    for k, v in clock.times.items()},
+              "replay": replay}
+    del params, opt, step, staged
     free_card(torch)
     return result
 
@@ -2543,13 +2727,18 @@ def resume_phase(torch) -> None:
     gap = _param_gap(out["params"], ref["params"], 1e-3, 10)
     falls = train.run("qwen2-1.5b", steps=30, global_batch=4, seq_len=64,
                       device="cuda", verbose=False)
-    print(f"phase 6c: resumed at step 10 after a failure at 12: "
-          f"{out['steps']} steps, losses max rel err {rel:.3e} against the "
+    modes = [r["mode"] for r in out["step_log"]]
+    print(f"phase 6c: staged run resumed at step 10 after a failure at 12: "
+          f"{out['steps']} steps ({modes.count('eager')} eager, "
+          f"{modes.count('capture')} capture, {modes.count('replay')} "
+          f"replays), losses max rel err {rel:.3e} against the "
           f"uninterrupted run, params max abs err {gap:.3e}; 30 steps: "
           f"loss {falls['first_loss']:.4f} -> {falls['final_loss']:.4f}")
     if out["steps"] != 10 or not rel <= LOSS_TOL:
         raise AssertionError(f"resumed {out['losses']} against "
                              f"{ref['losses'][10:]}")
+    if modes != ["eager", "capture"] + ["replay"] * 8:
+        raise AssertionError(f"resumed run's steps {modes}")
     if not falls["final_loss"] < falls["first_loss"] - 0.1:
         raise AssertionError(f"loss did not fall: {falls['losses']}")
 
@@ -2829,6 +3018,29 @@ def dryrun_real_args(torch, model, shape):
     return params, model.init_cache(B, S), ids(B, 1)
 
 
+def replayed_train_s(torch, model, args) -> float:
+    """8b's train step (AdamW's defaults, no accumulation or compression)
+    staged through ``StagedTrainStep`` on the same params, state and
+    batch, updated in place: one eager step, the capture, then the median
+    of three replays, synchronized."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import make_train_step_
+    from repro_torch.train.staged import StagedTrainStep
+    staged = StagedTrainStep(make_train_step_(model, AdamWConfig()),
+                             args[2], device="cuda")
+    modes = [staged(*args)[1] for _ in range(2)]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        modes.append(staged(*args)[1])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    if modes != ["eager", "capture"] + ["replay"] * 3:
+        raise AssertionError(f"8b staged steps {modes}")
+    return sorted(times)[1]
+
+
 def dryrun_phase(torch, card: str) -> dict:
     """8a: the port's dry run of qwen2-1.5b x decode_32k on the production
     meshes (host only).  8b: the dry run's prediction for two full-width
@@ -2902,6 +3114,8 @@ def dryrun_phase(torch, card: str) -> dict:
             times.append(time.perf_counter() - t)
             rise = max(rise, torch.cuda.max_memory_allocated() - base)
             del out
+        replay_s = replayed_train_s(torch, model, args) \
+            if kind == "train" else None
         del args
         step_s = sorted(times)[1]
         mem = pred["memory"]
@@ -2914,7 +3128,12 @@ def dryrun_phase(torch, card: str) -> dict:
               f"{tol:.0%}); step {step_s * 1e3:.2f} ms measured, roofline "
               f"{terms.step_time_s * 1e3:.2f} ms ({terms.dominant}-bound, "
               f"{terms.chip.name}), measured/roofline "
-              f"{step_s / terms.step_time_s:.2f}; predicted "
+              f"{step_s / terms.step_time_s:.2f}"
+              + ("" if replay_s is None else
+                 f", replayed through StagedTrainStep "
+                 f"{replay_s * 1e3:.2f} ms (measured/roofline "
+                 f"{replay_s / terms.step_time_s:.2f})")
+              + f"; predicted "
               f"{pred['flops']:.6g} flops, {pred['bytes']:.6g} B moved "
               f"(eager, unfused), {len(pred['collectives'])} collectives, "
               f"rewrites {pred['rewrites']}; traced as DTensors in "
@@ -2931,7 +3150,8 @@ def dryrun_phase(torch, card: str) -> dict:
                                  f"{mem['peak_size_in_bytes']} B, real "
                                  f"rise {rise} B")
         cells[kind] = {"pred": pred, "rise": rise, "step_s": step_s,
-                       "roofline_s": terms.step_time_s}
+                       "roofline_s": terms.step_time_s,
+                       "replay_s": replay_s}
     del model
     free_card(torch)
     dist.destroy_process_group()
@@ -3116,9 +3336,17 @@ def main(argv=None) -> int:
           f"{trained['in_gbps']:.1f} GB/s in, {trained['out_gbps']:.1f} "
           f"GB/s out, peak {trained['peak_gib']:.2f} GiB, parked "
           f"{trained['parked_gib']:.2f} GiB, losses "
-          f"{[round(x, 4) for x in trained['losses']]}; state on the "
-          f"card: step {profiled['wall_ms']:.1f} ms, device busy "
-          f"{profiled['busy_ms']:.1f} ms on {card}")
+          f"{[round(x, 4) for x in trained['losses']]} (eager); staged: "
+          f"replay {trained['replay_ms']:.1f} ms, peak "
+          f"{trained['staged_peak_gib']:.2f} GiB, allocated between steps "
+          f"{trained['staged_parked_gib']:.2f} GiB, reserved "
+          f"{trained['staged_reserved_gib']:.2f} GiB, graph pool "
+          f"{trained['pool_bytes']:,} B, bitwise equal to eager "
+          f"{trained['bitwise']}; state on the card: step "
+          f"{profiled['wall_ms']:.1f} ms, device busy "
+          f"{profiled['busy_ms']:.1f} ms; replayed "
+          f"{profiled['replay']['wall_ms']:.1f} ms, device busy "
+          f"{profiled['replay']['busy_ms']:.1f} ms on {card}")
     sync_refusal_phase(torch)
     print(f"total {time.monotonic() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -25,12 +25,14 @@ every write updates the pool **in place** and returns it (the JAX
 reads the same).
 
 Whole trees move with :func:`tree_put_tier`, the trainer's host-stage path
-for its optimizer state.  torch has no memory kinds inside a compiled
-step, so :func:`supports_in_jit_offload` is False and the trainer always
-pages the state eagerly between steps.  On CUDA ``pinned_host`` is
-page-locked CPU memory (a :class:`PinnedArena` the trainer fills in place
-every step); on the CPU the tensors stay where they are, as in the
-executor's modelling mode.
+for its optimizer state, which waits for its copies.  torch has no memory
+kinds inside a compiled step, so :func:`supports_in_jit_offload` is
+False; the staged train step pages its state with :func:`page_in` and
+:func:`page_out` instead, explicit copies issued on the current stream
+and not waited for, which a CUDA graph holds as its own nodes.  On CUDA
+``pinned_host`` is page-locked CPU memory (a :class:`PinnedArena` the
+trainer fills in place every step); on the CPU the tensors stay where
+they are, as in the executor's modelling mode.
 """
 
 from __future__ import annotations
@@ -54,8 +56,10 @@ def backend_memory_kinds(device="cuda") -> tuple:
 
 
 def supports_in_jit_offload() -> bool:
-    """Whether a compiled step can stream state between tiers itself: not
-    in torch, so tier moves are always eager (the host-stage path)."""
+    """Whether a compiled step can place state in host memory by
+    annotation, as XLA's memory kinds do: not in torch.  The staged train
+    step pages its state with explicit copies instead (:func:`page_in`,
+    :func:`page_out`), which its CUDA graph holds."""
     return False
 
 
@@ -120,6 +124,23 @@ def tree_put_tier(tree: Any, memory_kind: str, out: Any = None) -> Any:
     if any(a is not b for (_, a), (_, b) in zip(_paths(tree), _paths(res))):
         torch.cuda.synchronize()
     return res
+
+
+def page_in(parked: Any) -> Any:
+    """The tree on the card: each pinned host leaf copied to new device
+    memory, every other leaf as it is.  The copies are issued on the
+    current stream and not waited for (no host sync: a CUDA graph can
+    hold them)."""
+    return _put_tree(parked, DEVICE, None)
+
+
+def page_out(live: Any, parked: Any) -> None:
+    """Copy each leaf of ``live`` that :func:`page_in` moved back into its
+    ``parked`` tensor; a leaf that was not moved is ``parked``'s own and
+    stays.  Issued on the current stream and not waited for: read the
+    parked tensors on the host only after the stream is synchronized."""
+    for (_, p), (_, x) in zip(_paths(parked), _paths(live)):
+        put_tier(x, tier_of(p), out=p)
 
 
 def nbytes_of(tree: Any) -> int:

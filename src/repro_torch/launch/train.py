@@ -8,14 +8,21 @@ tolerance, straggler detection and LMB optimizer-state offload (port of
         --offload-opt --compress-grads               # full width, one card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
 
-It runs on the card unless given ``--device cpu``.  With ``--offload-opt``
-the optimizer state (float32 ``m``, ``v``, master copies and, with
+It runs on the card unless given ``--device cpu``.  The train step is
+staged, as the reference's ``jax.jit(make_train_step(...))``: on the card
+the first step runs eagerly on static buffers, the second captures the
+step as one CUDA graph and every later step replays it
+(``train.staged.StagedTrainStep``); on the CPU the same static step runs
+without a graph.  ``run(..., staged=False)`` runs ``make_train_step``
+op by op instead.  With ``--offload-opt`` the
+optimizer state (float32 ``m``, ``v``, master copies and, with
 ``--compress-grads``, the error-feedback residual) is parked in the LMB
 tier between steps: on the card, one page-locked host slab the state is
-copied into after every step and read back from before the next; on the
-CPU the state stays where it is (modelling mode).  The LMB pool is sized
-from the state, in whole 256 MiB blocks: the reference's fixed 4 GiB pool
-cannot hold a full-width model's state.
+copied into after every step and read back from before the next (inside
+the graph, when staged); on the CPU the state stays where it is
+(modelling mode).  The LMB pool is sized from the state, in whole 256
+MiB blocks: the reference's fixed 4 GiB pool cannot hold a full-width
+model's state.
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ from repro_torch.optim.adamw import AdamWConfig, tree_leaves
 from repro_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                           save_checkpoint)
 from repro_torch.train.fault import FailureInjector, StragglerDetector
-from repro_torch.train.loop import StepClock, make_train_step, opt_state_init
+from repro_torch.train.loop import (StepClock, make_train_step,
+                                    make_train_step_, opt_state_init)
+from repro_torch.train.staged import StagedTrainStep
 
 #: the device the trainer's LMB allocations are made for
 TRAINER_DEVICE = "gpu0"
@@ -84,16 +93,22 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
         compress_grads: bool = False, offload_opt: bool = False,
         reduced: bool = True, fail_at: Optional[set] = None,
         lr: float = 1e-3, verbose: bool = True, device="cuda",
-        init_params=None) -> dict:
+        init_params=None, staged: bool = True) -> dict:
     """Train ``arch`` for ``steps`` steps; returns the losses, the final
     params and optimizer state, and the wall time.
 
     Params are drawn from a ``torch.Generator`` seeded with 0, or taken
-    from ``init_params`` (on ``device``).  ``out["step_log"]`` holds, per
-    step, the time of each stage (``page_in``, ``fwd_bwd``, ``compress``,
-    ``adamw``, ``page_out``, the card synchronized at each boundary), the
-    bytes moved each way, and the tiers and device memory the parked
-    state leaves."""
+    from ``init_params`` (on ``device``).  ``staged`` runs the static
+    step (captured and replayed on the card) and updates ``params`` and
+    the state in place; ``staged=False`` runs the eager step, which
+    returns new trees.  ``out["step_log"]`` holds, per step, how it ran
+    (``mode``: ``eager``, ``capture`` or ``replay``), its time, the time
+    of each stage of an eager step (``page_in``, ``fwd_bwd``,
+    ``compress``, ``adamw``, ``page_out``, the card synchronized at each
+    boundary; none for a capture or replay), the bytes moved each way,
+    and the tiers and device memory (allocated and reserved) the parked
+    state leaves; ``out["staged"]`` the staged step's counts and its
+    graph pool's bytes."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -108,7 +123,12 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
     opt_state = opt_state_init(params, compress_grads)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
-    step_fn = make_train_step(model, opt_cfg, grad_accum, compress_grads)
+    if staged:
+        step_fn = make_train_step_(model, opt_cfg, grad_accum,
+                                   compress_grads)
+    else:
+        step_fn = make_train_step(model, opt_cfg, grad_accum,
+                                  compress_grads)
 
     data = make_dataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len,
@@ -135,6 +155,21 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
         opt_state = tree_put_tier(opt_state, park,
                                   out=arena and arena.tree)
 
+    def make_batch(step):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch(step).items()}
+        if cfg.encoder_decoder:
+            batch["src_emb"] = torch.zeros(
+                (batch["tokens"].shape[0], seq_len, cfg.d_model),
+                dtype=dtype_of(cfg), device=device)
+        return batch
+
+    if staged:
+        staged_step = StagedTrainStep(step_fn, make_batch(start),
+                                      device=device)
+        # the bytes the static step pages in and out: its pinned leaves
+        paged = sum(nbytes_of(l) for l in tree_leaves(opt_state)
+                    if tier_of(l) == PINNED_HOST)
     injector = FailureInjector(fail_at)
     straggler = StragglerDetector()
     losses, step_log = [], []
@@ -142,45 +177,48 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
     try:
         for step in range(start, steps):
             injector.maybe_fail(step)
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in data.batch(step).items()}
-            if cfg.encoder_decoder:
-                batch["src_emb"] = torch.zeros(
-                    (batch["tokens"].shape[0], seq_len, cfg.d_model),
-                    dtype=dtype_of(cfg), device=device)
+            batch = make_batch(step)
             clock = StepClock(device)
             moved = {"to_device": 0, "to_host": 0}
             t0 = time.monotonic()
-            if offload_opt:
-                clock.start()
-                parked = opt_state
-                opt_state = tree_put_tier(parked, DEVICE)        # page in
-                moved["to_device"] = _crossed(parked, opt_state)
-                clock.lap("page_in")
-            params, opt_state, metrics = step_fn(params, opt_state, batch,
-                                                 clock)
-            if offload_opt:
-                clock.start()
-                live = opt_state
-                opt_state = tree_put_tier(live, park,            # page out
-                                          out=arena and arena.tree)
-                moved["to_host"] = _crossed(live, opt_state)
-                del parked, live
-                clock.lap("page_out")
+            if staged:
+                metrics, mode = staged_step(params, opt_state, batch, clock)
+                moved = {"to_device": paged, "to_host": paged}
+            else:
+                mode = "eager"
+                if offload_opt:
+                    clock.start()
+                    parked = opt_state
+                    opt_state = tree_put_tier(parked, DEVICE)    # page in
+                    moved["to_device"] = _crossed(parked, opt_state)
+                    clock.lap("page_in")
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch, clock)
+                if offload_opt:
+                    clock.start()
+                    live = opt_state
+                    opt_state = tree_put_tier(live, park,        # page out
+                                              out=arena and arena.tree)
+                    moved["to_host"] = _crossed(live, opt_state)
+                    del parked, live
+                    clock.lap("page_out")
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = time.monotonic() - t0
+            cuda = device.type == "cuda"
             step_log.append({
-                "step": step, "loss": loss, "s": dt, "times": clock.times,
-                "moved": moved,
+                "step": step, "mode": mode, "loss": loss, "s": dt,
+                "times": clock.times, "moved": moved,
                 "parked_tiers": sorted({tier_of(l) for l in
                                         tree_leaves(opt_state)}),
                 "device_bytes": (torch.cuda.memory_allocated(device)
-                                 if device.type == "cuda" else None)})
+                                 if cuda else None),
+                "device_reserved": (torch.cuda.memory_reserved(device)
+                                    if cuda else None)})
             if straggler.observe(dt) and verbose:
                 print(f"[train] step {step}: straggler ({dt:.2f}s)")
             if verbose and (step % 10 == 0 or step == steps - 1):
-                print(f"[train] step {step} loss={loss:.4f} "
+                print(f"[train] step {step} ({mode}) loss={loss:.4f} "
                       f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
             if ckpt_dir and (step + 1) % ckpt_every == 0:
                 save_checkpoint(ckpt_dir, step + 1,
@@ -198,6 +236,7 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
         "params": params, "opt_state": opt_state,
         "state_bytes": state_bytes, "pool_gib": system.spec.pool_gib,
         "step_log": step_log,
+        "staged": staged_step.stats() if staged else None,
     }
 
 

@@ -76,6 +76,30 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for l in tree_leaves(tree)))
 
 
+def _scalars(cfg: AdamWConfig, grads: Any, count: torch.Tensor):
+    """(lr, gnorm, clip scale, bias corrections) of the step that takes
+    the count to ``count``: float32 tensors on its device.  ``b1`` and
+    ``b2`` are filled on the device (``torch.full``), not copied from the
+    host, so a CUDA graph can hold the update."""
+    lr = schedule(cfg, count)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    c = count.float()
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=c.device)
+    return lr, gnorm, scale, 1 - f32(cfg.b1) ** c, 1 - f32(cfg.b2) ** c
+
+
+def _leaf_update(cfg, lr, scale, bc1, bc2, g, m, v, master):
+    """One leaf's new (m, v, master)."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * scale
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    step_ = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    decay = cfg.weight_decay if master.dim() >= 2 else 0.0
+    return m, v, master - lr * (step_ + decay * master)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Any, state: Dict[str, Any],
                  params: Any) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
@@ -85,27 +109,38 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: Dict[str, Any],
     per-layer norm scale and bias, and leaves out only the unstacked
     ``final_norm`` scale."""
     count = state["count"] + 1
-    lr = schedule(cfg, count)
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-
-    b1, b2 = cfg.b1, cfg.b2
-    c = count.float()
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=c.device)
-    bc1 = 1 - f32(b1) ** c
-    bc2 = 1 - f32(b2) ** c
+    lr, gnorm, scale, bc1, bc2 = _scalars(cfg, grads, count)
 
     def upd(g, m, v, master, p):
-        g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        step_ = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        decay = cfg.weight_decay if master.dim() >= 2 else 0.0
-        master = master - lr * (step_ + decay * master)
+        m, v, master = _leaf_update(cfg, lr, scale, bc1, bc2, g, m, v,
+                                    master)
         return m, v, master, master.to(p.dtype)
 
-    out = tree_map(lambda *t: upd(*t), grads, state["m"], state["v"],
-                   state["master"], params)
+    out = tree_map(upd, grads, state["m"], state["v"], state["master"],
+                   params)
     pick = lambda i: tree_map(lambda o: o[i], out)
     return pick(3), {"m": pick(0), "v": pick(1), "master": pick(2),
                      "count": count}, {"lr": lr, "grad_norm": gnorm}
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, grads: Any, state: Dict[str, Any],
+                  params: Any) -> Dict[str, torch.Tensor]:
+    """:func:`adamw_update` in place: each leaf's new ``m``, ``v`` and
+    ``master`` are computed by the same expressions, then copied into the
+    state's tensors and the param, and ``count`` advances in place;
+    returns the metrics.  The values are computed first and copied in
+    after (no fused in-place arithmetic), so the result is
+    :func:`adamw_update`'s bit for bit; a leaf's temporaries are freed
+    before the next leaf's, so no second copy of the state is made."""
+    state["count"].add_(1)
+    lr, gnorm, scale, bc1, bc2 = _scalars(cfg, grads, state["count"])
+
+    def upd(g, m, v, master, p):
+        new = _leaf_update(cfg, lr, scale, bc1, bc2, g, m, v, master)
+        for dst, src in zip((m, v, master), new):
+            dst.copy_(src)
+        p.copy_(master)
+
+    tree_map(upd, grads, state["m"], state["v"], state["master"], params)
+    return {"lr": lr, "grad_norm": gnorm}

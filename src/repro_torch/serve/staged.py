@@ -93,7 +93,7 @@ from repro_torch.kernels import ops as kops
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    logits: torch.Tensor            # the graph's static output
+    output: object                  # the graph's static output
     launches: Dict[str, int]        # kernel launches of one replay
     dispatches: Dict[str, int]      # dispatcher calls of one replay
 
@@ -117,9 +117,10 @@ def _addresses(tree) -> Tuple[int, ...]:
 
 
 class _Staged:
-    """What both staged steps share: the side stream and the memory pool
-    their captures use, the params address check, and capture and replay
-    with the counts a graph carries."""
+    """What every staged function shares (the engine's three here, the
+    train step in ``repro_torch.train.staged``): the side stream and the
+    memory pool their captures use, the params address check, and capture
+    and replay with the counts a graph carries."""
 
     def __init__(self, step: Callable, device):
         self.step = step
@@ -140,9 +141,9 @@ class _Staged:
         if self._addresses is None:
             self._addresses = addresses
         elif addresses != self._addresses:
-            raise ValueError("the captured graphs read the params at the "
-                             "addresses they were captured with: update "
-                             "params in place")
+            raise ValueError("the captured graphs read their inputs at "
+                             "the addresses they were captured with: "
+                             "update params (and state) in place")
 
     def pool_bytes(self) -> int:
         """Device bytes held by the graphs' memory pool (0 on the CPU):
@@ -153,12 +154,18 @@ class _Staged:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
-    def _replay(self, staged: _Graph) -> torch.Tensor:
+    @staticmethod
+    def _output(result):
+        """What a graph keeps of its step's result as its static output:
+        a serve step's logits (its cache or pool is a static buffer)."""
+        return result[0]
+
+    def _replay(self, staged: _Graph):
         staged.graph.replay()
         cuda_build.add_launches(staged.launches)
         kops.add_dispatches(staged.dispatches)
         self.replays += 1
-        return staged.logits
+        return staged.output
 
     def _capture(self, args) -> _Graph:
         """Capture ``self.step(*args)`` as a graph on the side stream
@@ -175,11 +182,11 @@ class _Staged:
         with torch.cuda.stream(self._stream):
             graph.capture_begin(pool=self._mempool)
             try:
-                logits, _ = self.step(*args)
+                output = self._output(self.step(*args))
             finally:
                 graph.capture_end()
         current.wait_stream(self._stream)
-        staged = _Graph(graph, logits,
+        staged = _Graph(graph, output,
                         _delta(cuda_build.launch_counts(), launches),
                         _delta(kops.dispatch_counts(), dispatches))
         cuda_build.add_launches(_negate(staged.launches))

@@ -1,17 +1,21 @@
 """Training step: gradient accumulation, AdamW, optional int8 gradient
 compression (port of ``repro.train.loop``).
 
-``make_train_step`` builds the step the launcher calls:
+``make_train_step`` builds the reference's step:
 
     step(params, opt_state, batch) -> (params, opt_state, metrics)
 
 as in the reference, with autograd in place of ``jax.value_and_grad`` and
 a loop over microbatches in place of ``lax.scan``.  With ``grad_accum ==
 1`` the gradients keep each parameter's dtype; with more, they are summed
-into float32 zeros and divided, as the reference's are.  The step runs
-eagerly, so where the reference streams the optimizer state between tiers
-inside a compiled step, the port always takes the reference's host-stage
-path: the launcher pages the state in before the step and out after it.
+into float32 zeros and divided, as the reference's are.  That step runs
+eagerly and returns new trees; the launcher pages the state in before it
+and out after it (the reference's host-stage path).
+``make_train_step_`` is the same step on static buffers, updating params
+and state in place and paging the state in and out itself, which is what
+``train.staged.StagedTrainStep`` captures as one CUDA graph (the
+counterpart of the reference's ``jax.jit(make_train_step(...))`` with the
+state streamed between tiers inside the step).
 ``abstract_train_state`` gives the params and the optimizer state as
 ``meta`` tensors (shapes and dtypes, no storage) for the dry run.
 """
@@ -24,10 +28,12 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core.offload import page_in, page_out
 from repro_torch.models.zoo import Model
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     tree_leaves, tree_map)
-from repro_torch.optim.compression import ef_compress_tree, ef_state_init
+                                     adamw_update_, tree_leaves, tree_map)
+from repro_torch.optim.compression import (ef_compress_tree,
+                                           ef_compress_tree_, ef_state_init)
 
 
 @dataclasses.dataclass
@@ -97,6 +103,24 @@ def _fill(live, grads):
     return torch.zeros_like(live) if g is None else g
 
 
+def _loss_and_grads(model: Model, params, batch, grad_accum: int):
+    """The step's loss and gradients: one ``value_and_grad`` in each
+    leaf's dtype, or, over ``grad_accum`` microbatches (the loop
+    unrolled), float32 sums divided by their count."""
+    if grad_accum == 1:
+        return value_and_grad(model, params, batch)
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(params)[0].device)
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    for micro in _split_micro(batch, grad_accum):
+        l, g = value_and_grad(model, params, micro)
+        loss = loss + l
+        tree_map(lambda acc, x: acc.add_(x), grads, g)
+        del g
+    return loss / grad_accum, tree_map(lambda g: g / grad_accum, grads)
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     grad_accum: int = 1,
                     compress_grads: bool = False) -> Callable:
@@ -107,20 +131,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     def step(params, opt_state, batch, clock: Optional[StepClock] = None):
         if clock is not None:
             clock.start()
-        if grad_accum == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            for micro in _split_micro(batch, grad_accum):
-                l, g = value_and_grad(model, params, micro)
-                loss = loss + l
-                tree_map(lambda acc, x: acc.add_(x), grads, g)
-                del g
-            loss = loss / grad_accum
-            grads = tree_map(lambda g: g / grad_accum, grads)
+        loss, grads = _loss_and_grads(model, params, batch, grad_accum)
         if clock is not None:
             clock.lap("fwd_bwd")
         if compress_grads:
@@ -138,6 +149,54 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         return new_params, new_opt, metrics
 
     return step
+
+
+def make_train_step_(model: Model, opt_cfg: AdamWConfig,
+                     grad_accum: int = 1,
+                     compress_grads: bool = False) -> Callable:
+    """The step on static buffers, everything in place, as a CUDA graph
+    can hold it: returns step_(params, opt_state, batch, out, clock=None)
+    -> out.
+
+    ``batch`` holds the static inputs (``tokens`` and ``labels`` [B, S]
+    int32; ``src_emb`` for the encoder-decoder), ``out`` the static 0-d
+    float32 outputs ``loss``, ``lr`` and ``grad_norm``, written in place.
+    ``opt_state`` is the state where it is parked: its pinned host leaves
+    are paged to the card at the start (:func:`page_in`) and the updated
+    values copied back at the end (:func:`page_out`), so their device
+    copies live only while the step runs; leaves already on the device
+    (the state kept on the card, or any CPU run) are updated where they
+    are.  Params and state are updated in place with
+    :func:`adamw_update_` and :func:`ef_compress_tree_`, bit for bit what
+    :func:`make_train_step` computes.  No value is read on the host.  A
+    :class:`StepClock`, when given, times ``page_in``, ``fwd_bwd``,
+    ``compress``, ``adamw`` and ``page_out``."""
+
+    def lap(clock, name):
+        if clock is not None:
+            clock.lap(name)
+
+    def step_(params, opt_state, batch, out,
+              clock: Optional[StepClock] = None):
+        if clock is not None:
+            clock.start()
+        state = page_in(opt_state)
+        lap(clock, "page_in")
+        loss, grads = _loss_and_grads(model, params, batch, grad_accum)
+        lap(clock, "fwd_bwd")
+        if compress_grads:
+            grads = ef_compress_tree_(grads, state["ef_err"])
+            lap(clock, "compress")
+        metrics = adamw_update_(opt_cfg, grads, state, params)
+        lap(clock, "adamw")
+        page_out(state, opt_state)
+        lap(clock, "page_out")
+        out["loss"].copy_(loss)
+        out["lr"].copy_(metrics["lr"])
+        out["grad_norm"].copy_(metrics["grad_norm"])
+        return out
+
+    return step_
 
 
 def opt_state_init(params, compress_grads: bool = False):

@@ -1,0 +1,118 @@
+"""The train step staged once and replayed as a CUDA graph.
+
+Counterpart of ``repro/launch/train.py:61``, where the reference stages
+its train step with ``jax.jit(make_train_step(...))`` and dispatches the
+whole step as one program each call; with the optimizer state offloaded,
+XLA streams it between HBM and host memory around the update inside that
+program (``repro/train/loop.py:9-12``).  Here the step is
+``make_train_step_`` (``repro_torch.train.loop``), which reads its batch
+from static buffers, updates params and state in place and pages the
+parked state in and out itself; :class:`StagedTrainStep` captures it as
+one CUDA graph, page-in and page-out copies included, and replays it.
+
+It counts calls as the engine's staged functions do
+(``repro_torch.serve.staged``, whose capture and replay it shares): the
+first step runs eagerly on the static buffers, the second captures the
+step, with nothing run, and replays the graph for its own result, and
+every later step replays.  A run's batch never changes shape, so there is
+one graph.  It reads params and state at the addresses it was captured
+with; a call with other tensors raises.  A capture that fails raises:
+there is no eager fallback on the card.
+
+The eager first step runs on the side stream the capture uses, so the
+capture finds that stream's lazily made state (the cuBLAS workspace) in
+place.  After that step the allocator's cache still holds about the
+step's peak, while the capture allocates from the graph's own pool; the
+cache is released before capturing, or the two together could outgrow
+the card.  With the state parked in pinned host memory, its device copy
+lives in the graph's pool, only while a replay runs: between steps that
+memory is reserved, not allocated.
+
+On the CPU (the caller asked for it, as the tests do) the same static
+step is called directly; no graph exists.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.serve.staged import _Graph, _Staged
+
+#: the static outputs of a step, 0-d float32
+OUTPUTS = ("loss", "lr", "grad_norm")
+#: the side stream every staged train step of a device runs and captures
+#: on.  PyTorch keeps a cuBLAS workspace for each (thread, stream) that
+#: ran a GEMM until the process ends, so a fresh stream a run would leave
+#: two behind each time (the forward's, and the backward's on autograd's
+#: thread)
+_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+class StagedTrainStep(_Staged):
+    """``step_`` (``make_train_step_``) behind static batch buffers and
+    static 0-d outputs, captured once on a CUDA device.  Called as
+    ``(params, opt_state, batch, clock=None) -> (outputs, mode)``:
+    ``batch`` is copied into the static buffers (shaped as ``template``'s
+    tensors), ``outputs`` maps ``loss``, ``lr`` and ``grad_norm`` to the
+    static outputs, valid until the next call, and ``mode`` is
+    ``"eager"``, ``"capture"`` or ``"replay"``.  A :class:`StepClock`
+    times the stages of an eager step only."""
+
+    def __init__(self, step_: Callable, template: Dict[str, torch.Tensor],
+                 *, device):
+        super().__init__(step_, device)
+        if self._stream is not None:
+            self._stream = _STREAMS.setdefault(self.device, self._stream)
+        self.batch = {k: torch.zeros(v.shape, dtype=v.dtype,
+                                     device=self.device)
+                      for k, v in template.items()}
+        self.outputs = {k: torch.zeros((), dtype=torch.float32,
+                                       device=self.device) for k in OUTPUTS}
+        self.graph: Optional[_Graph] = None
+        #: steps run (eager, captured or replayed)
+        self.steps = 0
+        self.eager_steps = 0
+
+    @staticmethod
+    def _output(result):
+        return result
+
+    def stats(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager_steps": self.eager_steps, "steps": self.steps,
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes()}
+
+    def _capture(self, args) -> _Graph:
+        torch.cuda.empty_cache()
+        return super()._capture(args)
+
+    def __call__(self, params, opt_state, batch,
+                 clock=None) -> Tuple[Dict[str, torch.Tensor], str]:
+        self._check_params({"params": params, "opt_state": opt_state})
+        if batch.keys() != self.batch.keys():
+            raise ValueError(f"a batch of {sorted(batch)}, the static "
+                             f"buffers hold {sorted(self.batch)}")
+        for key, buf in self.batch.items():
+            if batch[key].shape != buf.shape:
+                raise ValueError(f"batch[{key!r}] {tuple(batch[key].shape)}"
+                                 f", the static buffer {tuple(buf.shape)}")
+            buf.copy_(batch[key])
+        self.steps += 1
+        args = (params, opt_state, self.batch, self.outputs)
+        if self.device.type != "cuda":
+            self.eager_steps += 1
+            return self.step(*args, clock), "eager"
+        if self.graph is None and self.steps > 1:
+            self.graph = self._capture(args)
+            return self._replay(self.graph), "capture"
+        if self.graph is not None:
+            return self._replay(self.graph), "replay"
+        self.eager_steps += 1
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            self.step(*args, clock)
+        current.wait_stream(self._stream)
+        return self.outputs, "eager"
