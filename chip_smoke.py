@@ -148,19 +148,26 @@ Phases (any failure raises and the script exits non-zero):
      backward).  6a: full-width qwen2-1.5b in bf16, 6 steps of 8 x 256
      tokens in 2 microbatches, int8 error-feedback compression, its
      24,702,574,596 B of optimizer state parked in pinned host memory
-     between steps; run staged (step 0 eager, step 1 captured as one CUDA
-     graph with the page moves inside it, steps 2-5 replayed), then
-     eager; each step's mode and time (an eager step's page-in, forward
-     and backward, compression, AdamW and page-out apart), the bytes
-     moved each way (which must equal the state's), the tier of every
-     parked leaf (which must be pinned host), device memory allocated
-     between steps (which must be under the state's size) and reserved,
-     the graph pool's bytes and each run's peak, every loss finite, and
-     staged losses within 1e-5 relative of eager's (params within
-     ``PARAM_TOL``; whether bitwise equal is printed).  6d: one step
-     with the state on the card traced with ``torch.profiler``, eager and
-     replayed: wall, device busy time, operations, idle share and the
-     gaps between operations.  6b: five reduced configs in f32 trained 5
+     between steps; run three times: staged and streamed (step 0 eager,
+     step 1 captured as one CUDA graph, steps 2-5 replayed; each leaf
+     paged in on the H2D copy stream from the step's start and out on
+     the D2H copy stream once updated, beside the compute, inside the
+     graph), staged and serial (the page moves in series with the step),
+     then eager; each step's mode and time (a serial eager step's
+     page-in, forward and backward, compression, AdamW and page-out
+     apart), the bytes moved each way (which must equal the state's),
+     the tier of every parked leaf (which must be pinned host), device
+     memory allocated between steps (which must be under the state's
+     size) and reserved, the graph pool's bytes and each run's peak,
+     every loss finite; per staged run the median of the untraced
+     replays, the capture step and step 5 traced with ``torch.profiler``;
+     streamed must equal serial (losses, params, state) and eager
+     (losses, params) bit for bit.  6d: one step with the state on the
+     card traced, eager and replayed: wall, device busy time, operations,
+     idle share and the gaps between operations; then 6a's traced
+     replays with the state parked: H2D, D2H and compute busy time and
+     the time copies ran beside compute, which must be above zero in the
+     streamed schedule.  6b: five reduced configs in f32 trained 5
      steps staged on the card and eagerly on the CPU from the same params
      must give the same losses (1e-5 relative) and params.  6c: a staged
      run stopped by the failure injector and resumed from its checkpoint
@@ -337,6 +344,14 @@ QWEN_STATE_BYTES = 16 * QWEN_PARAMS + 4
 TRAIN_RUN = dict(steps=6, global_batch=8, seq_len=256, grad_accum=2,
                  compress_grads=True, offload_opt=True)
 TRAIN_STAGES = ("page_in", "fwd_bwd", "compress", "adamw", "page_out")
+#: the replay each staged 6a run traces (6d reads the streamed one's)
+TRAIN_TRACE_STEP = 5
+#: 6a's three runs: the staged step streamed and serial, the eager step
+TRAIN_MODES = (("streamed", dict(staged=True, streamed=True,
+                                 trace_step=TRAIN_TRACE_STEP)),
+               ("serial", dict(staged=True, streamed=False,
+                               trace_step=TRAIN_TRACE_STEP)),
+               ("eager", dict(staged=False)))
 #: phase 6b: the reduced configs trained on the card and on the CPU
 TRAIN_ARCHS = ("qwen2-1.5b", "rwkv6-7b", "dbrx-132b", "hymba-1.5b",
                "seamless-m4t-large-v2")
@@ -2375,7 +2390,7 @@ def _gbps(nbytes: int, s: float) -> float:
     return nbytes / s / 1e9 if s > 0 else float("inf")
 
 
-def train_run(torch, staged: bool) -> dict:
+def train_run(torch, staged: bool, **kw) -> dict:
     """One 6a run of the launcher from a card that earlier phases have
     left: its output, wall time with set-up, kernel launches and peak."""
     from repro_torch.kernels import cuda_build
@@ -2389,7 +2404,7 @@ def train_run(torch, staged: bool) -> dict:
     cuda_build.reset_launch_counts()
     t = time.monotonic()
     out = train.run("qwen2-1.5b", reduced=False, verbose=False,
-                    staged=staged, **TRAIN_RUN)
+                    staged=staged, **TRAIN_RUN, **kw)
     out["total_s"] = time.monotonic() - t
     out["launches"] = cuda_build.launch_counts()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2398,22 +2413,27 @@ def train_run(torch, staged: bool) -> dict:
 
 def print_train_run(label: str, out: dict, card: str) -> None:
     """6a's lines for one run: set-up, then per step its mode and time
-    (an eager step's stages apart), the bytes each way, where the state
-    is parked and the device memory allocated and reserved after it."""
+    (a serial eager step's stages apart; a traced step's device busy
+    time), the bytes each way, where the state is parked and the device
+    memory allocated and reserved after it."""
+    from repro_torch.launch.train import TRACED
     log = out["step_log"]
     print(f"  {label}: set-up {out['total_s'] - out['wall_s']:.1f} s "
           f"(params, pinned slab, first page-out), {len(log)} steps "
           f"{out['wall_s']:.1f} s on {card}")
     for rec in log:
         tm, mv = rec["times"], rec["moved"]
-        if tm:
+        if all(k in tm for k in TRAIN_STAGES):
             how = "; ".join([
                 ", ".join(f"{k} {tm[k] * 1e3:.1f}" for k in TRAIN_STAGES)
                 + " ms", f"in {_gbps(mv['to_device'], tm['page_in']):.1f} "
                 f"GB/s, out {_gbps(mv['to_host'], tm['page_out']):.1f} "
                 "GB/s"])
         else:
-            how = "one graph: page-in, step and page-out"
+            how = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in tm.items()
+                            if k not in TRACED) + " ms"
+            if "overlap" in tm:
+                how += "; traced: " + traced_text(tm)
         print(f"    step {rec['step']} {rec['mode']}: loss "
               f"{rec['loss']:.4f}, {rec['s'] * 1e3:.1f} ms ({how}); in "
               f"{mv['to_device']:,} B, out {mv['to_host']:,} B; parked "
@@ -2422,6 +2442,16 @@ def print_train_run(label: str, out: dict, card: str) -> None:
               f"{rec['device_reserved'] / 2**30:.2f} GiB")
     print(f"    peak device memory {out['peak_gib']:.2f} GiB; kernel "
           f"launches {out['launches'] or 'none'}")
+
+
+def traced_text(tm: dict) -> str:
+    """A traced step's device time (``train.trace.busy_split``)."""
+    return (f"H2D busy {tm['h2d'] * 1e3:.1f} ms, D2H busy "
+            f"{tm['d2h'] * 1e3:.1f} ms, compute busy "
+            f"{tm['compute'] * 1e3:.1f} ms, copies beside compute "
+            f"{tm['overlap'] * 1e3:.1f} ms, H2D beside D2H "
+            f"{tm['both_ways'] * 1e3:.1f} ms, first to last operation "
+            f"{tm['span'] * 1e3:.1f} ms")
 
 
 def check_train_run(label: str, out: dict) -> None:
@@ -2450,72 +2480,114 @@ def check_train_run(label: str, out: dict) -> None:
 
 def train_phase(torch, card: str) -> dict:
     """6a: full-width qwen2-1.5b trained through the launcher, its
-    optimizer state parked in pinned host memory between steps: staged
-    (step 0 eager, step 1 captured, the rest replayed, the page moves
-    inside the graph), then the same run eager; staged losses and params
-    held to eager's."""
-    staged = train_run(torch, staged=True)
-    print(f"phase 6a: qwen2-1.5b full width, bf16, {TRAIN_RUN}; optimizer "
-          f"state {staged['state_bytes']:,} B (predicted "
-          f"{QWEN_STATE_BYTES:,}), LMB pool {staged['pool_gib']} GiB; "
-          f"staged, then eager (the training path runs the plain versions, "
-          f"as the reference's)")
-    print_train_run("staged", staged, card)
-    st = staged["staged"]
-    print(f"    graph pool {st['pool_bytes']:,} B; {st['eager_steps']} eager "
-          f"step, {st['captures']} capture ({st['capture_s']:.2f} s of "
-          f"host), {st['replays']} replays (the capture's own included)")
-    check_train_run("staged", staged)
-    modes = [r["mode"] for r in staged["step_log"]]
-    want = ["eager", "capture"] + ["replay"] * (TRAIN_RUN["steps"] - 2)
-    if modes != want:
-        raise AssertionError(f"staged modes {modes}, want {want}")
-    staged_params = _to(staged["params"], "cpu")
-    s_losses, s_log = staged["losses"], staged["step_log"]
-    s_peak, pool = staged["peak_gib"], st["pool_bytes"]
-    del staged
-    eager = train_run(torch, staged=False)
-    print_train_run("eager", eager, card)
-    check_train_run("eager", eager)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses,
-                                                  eager["losses"]))
-    gap = _param_gap(staged_params, eager["params"], 1e-3,
-                     TRAIN_RUN["steps"])
-    bitwise = s_losses == eager["losses"] and all(
-        torch.equal(a, b.cpu()) for a, b in zip(_leaves(staged_params),
-                                                _leaves(eager["params"])))
-    print(f"  staged against eager: losses max rel err {rel:.3e} (within "
-          f"{LOSS_TOL:g}), params max abs err {gap:.3e}; bitwise equal: "
-          f"{bitwise}")
-    if not rel <= LOSS_TOL:
-        raise AssertionError(f"staged losses {s_losses} against eager "
-                             f"{eager['losses']}")
-    log = eager["step_log"]
-    steady = log[1:] or log
-    med = lambda xs: sorted(xs)[len(xs) // 2]
-    state = eager["state_bytes"]
-    replays = [r["s"] * 1e3 for r in s_log if r["mode"] == "replay"]
-    result = {
-        "losses": eager["losses"], "state_bytes": state,
-        "step_ms": med([r["s"] * 1e3 for r in steady]),
-        "stage_ms": {k: med([r["times"][k] * 1e3 for r in steady])
-                     for k in TRAIN_STAGES},
-        "in_gbps": med([_gbps(state, r["times"]["page_in"])
-                        for r in steady]),
-        "out_gbps": med([_gbps(state, r["times"]["page_out"])
-                         for r in steady]),
-        "peak_gib": eager["peak_gib"],
-        "parked_gib": max(r["device_bytes"] for r in log) / 2**30,
-        "setup_s": eager["total_s"] - eager["wall_s"],
-        "launches": eager["launches"], "replay_ms": med(replays),
-        "staged_peak_gib": s_peak, "pool_bytes": pool,
-        "staged_parked_gib": max(r["device_bytes"] for r in s_log) / 2**30,
-        "staged_reserved_gib": max(r["device_reserved"]
-                                   for r in s_log[1:]) / 2**30,
-        "bitwise": bitwise}
-    del eager
-    free_card(torch)
-    return result
+    optimizer state parked in pinned host memory between steps, three
+    times: staged and streamed (step 0 eager, step 1 captured, the rest
+    replayed, each leaf paged on the copy streams beside the compute,
+    inside the graph), staged and serial (the page moves in series with
+    the step), then eager (host-stage).  Step ``TRAIN_TRACE_STEP`` of
+    each staged run is traced.  Streamed must equal serial and eager bit
+    for bit, losses and params (and serial's state)."""
+    from repro_torch.optim.adamw import tree_leaves
+    runs, kept = {}, {}
+    for label, kw in TRAIN_MODES:
+        out = train_run(torch, **kw)
+        if not runs:
+            print(f"phase 6a: qwen2-1.5b full width, bf16, {TRAIN_RUN}; "
+                  f"optimizer state {out['state_bytes']:,} B (predicted "
+                  f"{QWEN_STATE_BYTES:,}), LMB pool {out['pool_gib']} GiB; "
+                  f"staged streamed, staged serial, then eager (the "
+                  f"training path runs the plain versions, as the "
+                  f"reference's)")
+        print_train_run(label, out, card)
+        check_train_run(label, out)
+        log = out["step_log"]
+        run = {"losses": out["losses"], "peak_gib": out["peak_gib"],
+               "setup_s": out["total_s"] - out["wall_s"],
+               "launches": out["launches"], "log": log,
+               "state_bytes": out["state_bytes"],
+               "allocated_gib": max(r["device_bytes"] for r in log) / 2**30,
+               "reserved_gib": max(r["device_reserved"]
+                                   for r in log[1:]) / 2**30}
+        if kw["staged"]:
+            st = out["staged"]
+            print(f"    graph pool {st['pool_bytes']:,} B; "
+                  f"{st['eager_steps']} eager step, {st['captures']} "
+                  f"capture ({st['capture_s']:.2f} s of host), "
+                  f"{st['replays']} replays (the capture's own included)")
+            modes = [r["mode"] for r in log]
+            want = ["eager", "capture"] + ["replay"] * (TRAIN_RUN["steps"]
+                                                        - 2)
+            if modes != want or out["streamed"] != kw["streamed"]:
+                raise AssertionError(f"{label} modes {modes}, want {want}; "
+                                     f"streamed {out['streamed']}")
+            replays = [r["s"] * 1e3 for r in log if r["mode"] == "replay"
+                       and r["step"] != TRAIN_TRACE_STEP]
+            run.update(pool_bytes=st["pool_bytes"],
+                       replay_ms=_median(replays),
+                       capture_ms=log[1]["s"] * 1e3,
+                       traced=log[TRAIN_TRACE_STEP]["times"])
+        else:
+            steady = log[1:] or log
+            state = out["state_bytes"]
+            run.update(
+                step_ms=_median([r["s"] * 1e3 for r in steady]),
+                stage_ms={k: _median([r["times"][k] * 1e3 for r in steady])
+                          for k in TRAIN_STAGES},
+                in_gbps=_median([_gbps(state, r["times"]["page_in"])
+                                 for r in steady]),
+                out_gbps=_median([_gbps(state, r["times"]["page_out"])
+                                  for r in steady]))
+        kept[label] = {"params": [l.cpu() for l in
+                                  tree_leaves(out["params"])]}
+        if label != "eager":
+            # the parked state is host memory: kept to compare, the
+            # streamed run's only until the serial run's is here
+            kept[label]["state"] = tree_leaves(out["opt_state"])
+        runs[label] = run
+        del out
+        if label == "serial":
+            a, b = kept["streamed"].pop("state"), kept["serial"].pop("state")
+            run["state_bitwise"] = all(torch.equal(x, y)
+                                       for x, y in zip(a, b))
+            del a, b
+        free_card(torch)
+    s, r, e = runs["streamed"], runs["serial"], runs["eager"]
+    same = lambda x, y: all(torch.equal(a, b) for a, b in
+                            zip(kept[x]["params"], kept[y]["params"]))
+    bitwise = {"serial": s["losses"] == r["losses"] and same("streamed",
+                                                            "serial"),
+               "eager": s["losses"] == e["losses"] and same("streamed",
+                                                           "eager")}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s["losses"], e["losses"]))
+    print(f"  streamed against serial: losses and params bitwise equal "
+          f"{bitwise['serial']}, state bitwise equal {r['state_bitwise']}; "
+          f"against eager: bitwise equal {bitwise['eager']} (losses max rel "
+          f"err {rel:.3e})")
+    for label, run in runs.items():
+        if "replay_ms" in run:
+            print(f"  {label}: replay {run['replay_ms']:.1f} ms (median of "
+                  f"the untraced replays of steps 2-5), capture step "
+                  f"{run['capture_ms']:.1f} ms, peak {run['peak_gib']:.2f} "
+                  f"GiB, between steps allocated {run['allocated_gib']:.2f} "
+                  f"GiB, reserved {run['reserved_gib']:.2f} GiB; traced "
+                  f"step {TRAIN_TRACE_STEP}: {traced_text(run['traced'])} "
+                  f"on {card}")
+        else:
+            print(f"  {label}: step {run['step_ms']:.1f} ms (median of steps "
+                  f"1-5), peak {run['peak_gib']:.2f} GiB, between steps "
+                  f"allocated {run['allocated_gib']:.2f} GiB, reserved "
+                  f"{run['reserved_gib']:.2f} GiB on {card}")
+    if not (bitwise["serial"] and bitwise["eager"] and r["state_bitwise"]):
+        raise AssertionError(f"streamed {s['losses']}, serial "
+                             f"{r['losses']}, eager {e['losses']}: "
+                             f"bitwise {bitwise}, state "
+                             f"{r['state_bitwise']}")
+    return {"runs": runs, "losses": e["losses"],
+            "state_bytes": e["state_bytes"], "launches": e["launches"]}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def _param_gap(a, b, lr: float, steps: int) -> float:
@@ -2610,14 +2682,17 @@ def trace_text(ops, wall: float) -> tuple:
     return line, fig
 
 
-def train_profile_phase(torch) -> dict:
+def train_profile_phase(torch, trained: dict) -> dict:
     """6d: where a full-width training step's compute goes.  The
     launcher's train step on qwen2-1.5b with its state on the card (no
     paging: the compute part of a 6a step): eagerly, two steps to warm
     up, one timed, one under ``torch.profiler``; then staged on the same
     params and state (``StagedTrainStep``: one eager step, the capture,
     one replay timed, one traced).  The device's busy time against the
-    timed step's wall gives each one's idle share."""
+    timed step's wall gives each one's idle share.  Then the replays 6a
+    traced with the state parked: H2D, D2H and compute busy, and the
+    time copies ran beside compute, which must be more than zero in the
+    streamed schedule."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import build_model
@@ -2686,6 +2761,15 @@ def train_profile_phase(torch) -> dict:
     if not rops:
         print("  the profiler recorded no device time in the replay: not "
               "measured")
+    for label in ("streamed", "serial"):
+        run = trained["runs"][label]
+        print(f"  {label} replay of 6a (state parked), step "
+              f"{TRAIN_TRACE_STEP} traced: {traced_text(run['traced'])}; "
+              f"{run['log'][TRAIN_TRACE_STEP]['s'] * 1e3:.1f} ms traced "
+              f"against {run['replay_ms']:.1f} ms untraced")
+    if not trained["runs"]["streamed"]["traced"]["overlap"] > 0:
+        raise AssertionError("the streamed replay ran no copy beside "
+                             "compute")
     result = {**eager, "stage_ms": {k: v * 1e3
                                     for k, v in clock.times.items()},
               "replay": replay}
@@ -3301,7 +3385,7 @@ def main(argv=None) -> int:
     encdec_reference_phase(torch)
     sweep_reference_phase(torch)
     trained = train_phase(torch, card)
-    profiled = train_profile_phase(torch)
+    profiled = train_profile_phase(torch, trained)
     train_reference_phase(torch)
     resume_phase(torch)
     dryrun_phase(torch, card)
@@ -3329,21 +3413,20 @@ def main(argv=None) -> int:
           f"ms, mean decode step {seamless['mean_step_s'] * 1e3:.2f} ms, "
           f"{seamless['tokens_per_s']:.1f} tokens/s, peak "
           f"{seamless['peak_mem_gib']:.2f} GiB on {card}")
-    stages = ", ".join(f"{k} {v:.1f}" for k, v in
-                       trained["stage_ms"].items())
-    print(f"train qwen2-1.5b: step {trained['step_ms']:.1f} ms ({stages} "
+    ea, sr, sm = (trained["runs"][k] for k in ("eager", "serial",
+                                                "streamed"))
+    stages = ", ".join(f"{k} {v:.1f}" for k, v in ea["stage_ms"].items())
+    print(f"train qwen2-1.5b: eager step {ea['step_ms']:.1f} ms ({stages} "
           f"ms), state {trained['state_bytes']:,} B each way at "
-          f"{trained['in_gbps']:.1f} GB/s in, {trained['out_gbps']:.1f} "
-          f"GB/s out, peak {trained['peak_gib']:.2f} GiB, parked "
-          f"{trained['parked_gib']:.2f} GiB, losses "
-          f"{[round(x, 4) for x in trained['losses']]} (eager); staged: "
-          f"replay {trained['replay_ms']:.1f} ms, peak "
-          f"{trained['staged_peak_gib']:.2f} GiB, allocated between steps "
-          f"{trained['staged_parked_gib']:.2f} GiB, reserved "
-          f"{trained['staged_reserved_gib']:.2f} GiB, graph pool "
-          f"{trained['pool_bytes']:,} B, bitwise equal to eager "
-          f"{trained['bitwise']}; state on the card: step "
-          f"{profiled['wall_ms']:.1f} ms, device busy "
+          f"{ea['in_gbps']:.1f} GB/s in, {ea['out_gbps']:.1f} GB/s out, "
+          f"peak {ea['peak_gib']:.2f} GiB, losses "
+          f"{[round(x, 4) for x in trained['losses']]}; replayed serial "
+          f"{sr['replay_ms']:.1f} ms (peak {sr['peak_gib']:.2f} GiB, graph "
+          f"pool {sr['pool_bytes']:,} B), streamed {sm['replay_ms']:.1f} ms "
+          f"(peak {sm['peak_gib']:.2f} GiB, graph pool "
+          f"{sm['pool_bytes']:,} B, copies beside compute "
+          f"{sm['traced']['overlap'] * 1e3:.1f} ms); state on the card: "
+          f"step {profiled['wall_ms']:.1f} ms, device busy "
           f"{profiled['busy_ms']:.1f} ms; replayed "
           f"{profiled['replay']['wall_ms']:.1f} ms, device busy "
           f"{profiled['replay']['busy_ms']:.1f} ms on {card}")

@@ -25,19 +25,33 @@ every write updates the pool **in place** and returns it (the JAX
 reads the same).
 
 Whole trees move with :func:`tree_put_tier`, the trainer's host-stage path
-for its optimizer state, which waits for its copies.  torch has no memory
-kinds inside a compiled step, so :func:`supports_in_jit_offload` is
-False; the staged train step pages its state with :func:`page_in` and
-:func:`page_out` instead, explicit copies issued on the current stream
-and not waited for, which a CUDA graph holds as its own nodes.  On CUDA
-``pinned_host`` is page-locked CPU memory (a :class:`PinnedArena` the
-trainer fills in place every step); on the CPU the tensors stay where
-they are, as in the executor's modelling mode.
+for its optimizer state, which waits for its copies.  That is the CPU's
+mode, and the reference's wherever XLA cannot compile memory kinds:
+functionally what the in-jit mode does, with no overlap.
+
+The in-jit mode is the reference's on its accelerator: the step is
+compiled with ``memory_kind`` annotations on its offloaded operands and
+results, and XLA schedules the HBM<->host copies beside its compute.
+torch has no memory kinds, sharded or not; the staged train step moves
+its parked state itself, with explicit copies a CUDA graph holds as its
+own nodes.  :func:`page_in` and :func:`page_out` issue them on the
+current stream, in series with the step (the serial schedule);
+:func:`page_in_streamed` and :func:`page_out_streamed` are the
+counterpart of the annotations (:func:`supports_in_jit_offload` is True
+on a card): each leaf moves on one of a device's two copy streams
+(:class:`CopyStreams`, host-to-device and device-to-host, one copy
+engine each) and an event per leaf and direction tells its consumer
+when it has landed, so the copies run beside the forward and backward
+passes and the update.  On CUDA ``pinned_host`` is page-locked CPU
+memory (a :class:`PinnedArena` the trainer fills in place every step);
+on the CPU the tensors stay where they are, as in the executor's
+modelling mode.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+import contextlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,12 +69,13 @@ def backend_memory_kinds(device="cuda") -> tuple:
     return (DEVICE,)
 
 
-def supports_in_jit_offload() -> bool:
-    """Whether a compiled step can place state in host memory by
-    annotation, as XLA's memory kinds do: not in torch.  The staged train
-    step pages its state with explicit copies instead (:func:`page_in`,
-    :func:`page_out`), which its CUDA graph holds."""
-    return False
+def supports_in_jit_offload(device="cuda") -> bool:
+    """Whether a staged step on ``device`` can keep state in host memory
+    and move it beside its compute, as XLA's memory kinds do: on a card,
+    yes (:func:`page_in_streamed`, :func:`page_out_streamed` on its
+    :class:`CopyStreams`, inside the step's CUDA graph); on the CPU, or
+    where there is no card, no."""
+    return torch.device(device).type == "cuda" and torch.cuda.is_available()
 
 
 def tier_of(x: torch.Tensor) -> str:
@@ -141,6 +156,153 @@ def page_out(live: Any, parked: Any) -> None:
     parked tensors on the host only after the stream is synchronized."""
     for (_, p), (_, x) in zip(_paths(parked), _paths(live)):
         put_tier(x, tier_of(p), out=p)
+
+
+class CopyStreams:
+    """A card's two copy streams, ``h2d`` (host to device) and ``d2h``
+    (device to host), and the stream operations the streamed page moves
+    make on them: :meth:`record` an event, :meth:`wait` for one, run on a
+    stream (:meth:`on`), :meth:`copy_`.  Every call goes through this
+    object, so a stand-in that records them (the tests) sees the whole
+    schedule.  Made once per device (:func:`copy_streams`); a stream that
+    cannot be made raises."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.h2d = torch.cuda.Stream(self.device)
+        self.d2h = torch.cuda.Stream(self.device)
+
+    def current(self):
+        """The stream the step computes on (the capture stream)."""
+        return torch.cuda.current_stream(self.device)
+
+    def on(self, stream):
+        return torch.cuda.stream(stream)
+
+    def record(self, stream):
+        event = torch.cuda.Event()
+        event.record(stream)
+        return event
+
+    def wait(self, stream, event) -> None:
+        stream.wait_event(event)
+
+    def copy_(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        dst.copy_(src, non_blocking=True)
+
+    def moves(self, leaf: torch.Tensor) -> bool:
+        """Whether a parked leaf is paged (it is in pinned host memory)."""
+        return tier_of(leaf) == PINNED_HOST
+
+    def fork(self, stream) -> None:
+        """``stream`` waits for what the current stream has issued."""
+        self.wait(stream, self.record(self.current()))
+
+    def join(self) -> None:
+        """The current stream waits for both copy streams: a capture ends
+        joined, and the next step's page-in reads no parked tensor a
+        page-out is still writing."""
+        current = self.current()
+        for stream in (self.h2d, self.d2h):
+            self.wait(current, self.record(stream))
+
+
+class HostStreams(CopyStreams):
+    """The CPU's stand-in: one host thread, so every "stream" is a name,
+    an event is nothing to wait for and a copy has landed when it
+    returns.  Nothing is paged on the CPU (modelling mode)."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self.h2d, self.d2h = "h2d", "d2h"
+
+    def current(self):
+        return "compute"
+
+    def on(self, stream):
+        return contextlib.nullcontext()
+
+    def record(self, stream):
+        return None
+
+    def wait(self, stream, event) -> None:
+        pass
+
+    def copy_(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        dst.copy_(src)
+
+
+#: each card's copy streams, shared by every streamed step on it
+_COPY_STREAMS: Dict[torch.device, CopyStreams] = {}
+
+
+def copy_streams(device) -> CopyStreams:
+    """``device``'s :class:`CopyStreams` (made at the first call), or a
+    :class:`HostStreams` for the CPU."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return HostStreams(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _COPY_STREAMS:
+        _COPY_STREAMS[device] = CopyStreams(device)
+    return _COPY_STREAMS[device]
+
+
+def leaf_at(tree: Any, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def page_in_streamed(parked: Any, order: Sequence[tuple],
+                     streams: CopyStreams) -> Tuple[Any, Dict[tuple, Any]]:
+    """:func:`page_in` leaf by leaf on ``streams.h2d``, in ``order`` (key
+    paths, every leaf of ``parked`` once): returns ``(live, arrived)``,
+    ``live`` the tree on the card and ``arrived`` the event recorded on
+    the H2D stream after each path's copy.  A consumer of a leaf waits on
+    its own event, and no more.  Every device copy is allocated here, on
+    the current stream, before the H2D stream forks from it, and the
+    copies are all issued at once and not waited for; keep ``live`` until
+    :meth:`CopyStreams.join`, since the copy streams' use of its tensors
+    is not known to the allocator."""
+    order = [tuple(p) for p in order]
+    paths = [p for p, _ in _paths(parked)]
+    if sorted(order, key=repr) != sorted(paths, key=repr):
+        raise ValueError(f"page-in order {order} is not the tree's leaves "
+                         f"{paths}")
+
+    def alloc(leaf):
+        if isinstance(leaf, dict):
+            return {k: alloc(v) for k, v in leaf.items()}
+        if not streams.moves(leaf):
+            return leaf
+        return torch.empty(leaf.shape, dtype=leaf.dtype,
+                           device=streams.device)
+
+    live = alloc(parked)
+    streams.fork(streams.h2d)
+    arrived = {}
+    with streams.on(streams.h2d):
+        for path in order:
+            src, dst = leaf_at(parked, path), leaf_at(live, path)
+            if dst is not src:
+                streams.copy_(dst, src)
+            arrived[path] = streams.record(streams.h2d)
+    return live, arrived
+
+
+def page_out_streamed(live: Any, parked: Any, paths: Sequence[tuple],
+                      written: Any, streams: CopyStreams) -> None:
+    """:func:`page_out` of the leaves at ``paths`` on ``streams.d2h``,
+    once ``written`` (an event recorded where they were last written)
+    has passed; not waited for."""
+    streams.wait(streams.d2h, written)
+    with streams.on(streams.d2h):
+        for path in paths:
+            src, dst = leaf_at(live, path), leaf_at(parked, path)
+            if src is not dst:
+                streams.copy_(dst, src)
 
 
 def nbytes_of(tree: Any) -> int:

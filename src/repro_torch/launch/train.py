@@ -17,12 +17,18 @@ without a graph.  ``run(..., staged=False)`` runs ``make_train_step``
 op by op instead.  With ``--offload-opt`` the
 optimizer state (float32 ``m``, ``v``, master copies and, with
 ``--compress-grads``, the error-feedback residual) is parked in the LMB
-tier between steps: on the card, one page-locked host slab the state is
-copied into after every step and read back from before the next (inside
-the graph, when staged); on the CPU the state stays where it is
-(modelling mode).  The LMB pool is sized from the state, in whole 256
-MiB blocks: the reference's fixed 4 GiB pool cannot hold a full-width
-model's state.
+tier between steps: on the card, one page-locked host slab.  The staged
+step on the card moves it in the reference's in-jit offload mode: leaf
+by leaf on the card's two copy streams, in from the step's start and
+out as soon as each leaf is updated, beside the forward and backward
+passes and the update, all inside the graph
+(``core.offload.supports_in_jit_offload``; ``run(..., streamed=False)``
+keeps the serial schedule, page-in, step, page-out).  The eager step
+(``staged=False``) takes the reference's host-stage mode: the state is
+copied in before the step and out after it.  On the CPU the state stays
+where it is (modelling mode).  The LMB pool is sized from the state, in
+whole 256 MiB blocks: the reference's fixed 4 GiB pool cannot hold a
+full-width model's state.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import (BLOCK_BYTES, DeviceSpec, HostSpec, LMBSystem,
                               SystemSpec)
 from repro_torch.core.offload import (DEVICE, PINNED_HOST, PinnedArena,
-                                      backend_memory_kinds, nbytes_of,
+                                      backend_memory_kinds, copy_streams,
+                                      nbytes_of, supports_in_jit_offload,
                                       tier_of, tree_put_tier)
 from repro_torch.data.pipeline import DataConfig, make_dataset
 from repro_torch.devices import resolve_device
@@ -51,9 +58,12 @@ from repro_torch.train.fault import FailureInjector, StragglerDetector
 from repro_torch.train.loop import (StepClock, make_train_step,
                                     make_train_step_, opt_state_init)
 from repro_torch.train.staged import StagedTrainStep
+from repro_torch.train.trace import busy_split, device_ops
 
 #: the device the trainer's LMB allocations are made for
 TRAINER_DEVICE = "gpu0"
+#: the busy times a traced step adds to its ``times``
+TRACED = ("h2d", "d2h", "compute", "overlap", "both_ways", "span")
 
 
 def state_system(state_bytes: int) -> LMBSystem:
@@ -93,7 +103,9 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
         compress_grads: bool = False, offload_opt: bool = False,
         reduced: bool = True, fail_at: Optional[set] = None,
         lr: float = 1e-3, verbose: bool = True, device="cuda",
-        init_params=None, staged: bool = True) -> dict:
+        init_params=None, staged: bool = True,
+        streamed: Optional[bool] = None,
+        trace_step: Optional[int] = None) -> dict:
     """Train ``arch`` for ``steps`` steps; returns the losses, the final
     params and optimizer state, and the wall time.
 
@@ -101,14 +113,25 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
     from ``init_params`` (on ``device``).  ``staged`` runs the static
     step (captured and replayed on the card) and updates ``params`` and
     the state in place; ``staged=False`` runs the eager step, which
-    returns new trees.  ``out["step_log"]`` holds, per step, how it ran
-    (``mode``: ``eager``, ``capture`` or ``replay``), its time, the time
-    of each stage of an eager step (``page_in``, ``fwd_bwd``,
-    ``compress``, ``adamw``, ``page_out``, the card synchronized at each
-    boundary; none for a capture or replay), the bytes moved each way,
-    and the tiers and device memory (allocated and reserved) the parked
-    state leaves; ``out["staged"]`` the staged step's counts and its
-    graph pool's bytes."""
+    returns new trees.  ``streamed`` picks the static step's schedule:
+    the state streamed beside the step on the device's copy streams, or
+    paged in and out in series with it; by default streamed where the
+    state is parked on a card (``offload_opt`` and
+    :func:`supports_in_jit_offload`).  ``trace_step``, a step on the
+    card, runs under ``torch.profiler``.
+
+    ``out["step_log"]`` holds, per step, how it ran (``mode``:
+    ``eager``, ``capture`` or ``replay``), its time, ``times`` (the card
+    synchronized at each boundary): for a serial eager step each stage
+    (``page_in``, ``fwd_bwd``, ``compress``, ``adamw``, ``page_out``),
+    for a streamed one the whole ``step``, for a capture or replay the
+    whole call (``capture``, ``replay``), and for the traced step the
+    device's busy time besides (``h2d``, ``d2h``, ``compute``,
+    ``overlap``, ``both_ways``, ``span``, in seconds, from
+    ``train.trace.busy_split``); the bytes moved each way, and the
+    tiers and device memory (allocated and reserved) the parked state
+    leaves.  ``out["staged"]`` holds the staged step's counts and its
+    graph pool's bytes, ``out["streamed"]`` the schedule taken."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -123,9 +146,16 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
     opt_state = opt_state_init(params, compress_grads)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
+    if streamed is None:
+        streamed = staged and offload_opt and supports_in_jit_offload(device)
+    if streamed and not staged:
+        raise ValueError("only the staged step streams its state")
+    if trace_step is not None and not (staged and device.type == "cuda"):
+        raise ValueError("trace_step traces a staged step on the card")
     if staged:
-        step_fn = make_train_step_(model, opt_cfg, grad_accum,
-                                   compress_grads)
+        step_fn = make_train_step_(
+            model, opt_cfg, grad_accum, compress_grads,
+            streams=copy_streams(device) if streamed else None)
     else:
         step_fn = make_train_step(model, opt_cfg, grad_accum,
                                   compress_grads)
@@ -182,7 +212,15 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
             moved = {"to_device": 0, "to_host": 0}
             t0 = time.monotonic()
             if staged:
-                metrics, mode = staged_step(params, opt_state, batch, clock)
+                res = []
+                call = lambda: res.append(staged_step(params, opt_state,
+                                                      batch, clock))
+                if step == trace_step:
+                    busy = busy_split(device_ops(call, device))
+                    clock.times.update({k: busy[k] / 1e3 for k in TRACED})
+                else:
+                    call()
+                (metrics, mode), = res
                 moved = {"to_device": paged, "to_host": paged}
             else:
                 mode = "eager"
@@ -237,6 +275,7 @@ def run(arch: str, steps: int = 50, global_batch: int = 8,
         "state_bytes": state_bytes, "pool_gib": system.spec.pool_gib,
         "step_log": step_log,
         "staged": staged_step.stats() if staged else None,
+        "streamed": streamed,
     }
 
 

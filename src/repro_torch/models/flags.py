@@ -29,7 +29,9 @@ class Flags:
     #: apply Megatron-SP activation sharding constraints (needs an active
     #: activation_mesh context; no-op otherwise)
     act_constraints: bool = True
-    #: offload optimizer state to the LMB tier inside the step (TPU only)
+    #: offload optimizer state to the LMB tier inside the step (in the
+    #: reference, TPU only; in the port, the staged train step on a card
+    #: streams it, ``launch.train.run(offload_opt=True)``)
     offload_opt_state: bool = False
     #: chunk length for rwkv/ssm chunked scans
     scan_chunk: int = 64

@@ -47,6 +47,14 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_paths(tree, prefix: tuple = ()):
+    """The key path of each leaf, in :func:`tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup + cosine decay, in float32."""
     s = step.float()
@@ -124,23 +132,37 @@ def adamw_update(cfg: AdamWConfig, grads: Any, state: Dict[str, Any],
 
 
 @torch.no_grad()
+def adamw_scalars_(cfg: AdamWConfig, grads: Any, count: torch.Tensor):
+    """The first part of :func:`adamw_update_`: ``count`` advanced in
+    place, then the step's scalars (lr, gnorm, clip scale, bias
+    corrections), for :func:`adamw_leaf_`."""
+    count.add_(1)
+    return _scalars(cfg, grads, count)
+
+
+@torch.no_grad()
+def adamw_leaf_(cfg: AdamWConfig, scalars, g, m, v, master, p) -> None:
+    """The rest of :func:`adamw_update_`, one leaf: its new ``m``, ``v``
+    and ``master`` computed by :func:`adamw_update`'s expressions, then
+    copied into the state's tensors and the param."""
+    lr, _, scale, bc1, bc2 = scalars
+    new = _leaf_update(cfg, lr, scale, bc1, bc2, g, m, v, master)
+    for dst, src in zip((m, v, master), new):
+        dst.copy_(src)
+    p.copy_(master)
+
+
 def adamw_update_(cfg: AdamWConfig, grads: Any, state: Dict[str, Any],
                   params: Any) -> Dict[str, torch.Tensor]:
-    """:func:`adamw_update` in place: each leaf's new ``m``, ``v`` and
-    ``master`` are computed by the same expressions, then copied into the
-    state's tensors and the param, and ``count`` advances in place;
-    returns the metrics.  The values are computed first and copied in
-    after (no fused in-place arithmetic), so the result is
-    :func:`adamw_update`'s bit for bit; a leaf's temporaries are freed
-    before the next leaf's, so no second copy of the state is made."""
-    state["count"].add_(1)
-    lr, gnorm, scale, bc1, bc2 = _scalars(cfg, grads, state["count"])
-
-    def upd(g, m, v, master, p):
-        new = _leaf_update(cfg, lr, scale, bc1, bc2, g, m, v, master)
-        for dst, src in zip((m, v, master), new):
-            dst.copy_(src)
-        p.copy_(master)
-
-    tree_map(upd, grads, state["m"], state["v"], state["master"], params)
-    return {"lr": lr, "grad_norm": gnorm}
+    """:func:`adamw_update` in place: ``count`` advances in place
+    (:func:`adamw_scalars_`) and each leaf is updated by
+    :func:`adamw_leaf_`; returns the metrics.  The values are computed
+    first and copied in after (no fused in-place arithmetic), so the
+    result is :func:`adamw_update`'s bit for bit; a leaf's temporaries
+    are freed before the next leaf's, so no second copy of the state is
+    made."""
+    scalars = adamw_scalars_(cfg, grads, state["count"])
+    tree_map(lambda g, m, v, master, p: adamw_leaf_(cfg, scalars, g, m, v,
+                                                    master, p),
+             grads, state["m"], state["v"], state["master"], params)
+    return {"lr": scalars[0], "grad_norm": scalars[1]}

@@ -46,17 +46,23 @@ def ef_compress_tree(grads: Any, err_tree: Any) -> Tuple[Any, Any]:
     return (tree_map(lambda o: o[0], outs), tree_map(lambda o: o[1], outs))
 
 
+@torch.no_grad()
+def ef_compress_(g: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """:func:`ef_compress` with the residual written into ``err``;
+    returns the decompressed update."""
+    d, e = ef_compress(g, err)
+    err.copy_(e)
+    return d
+
+
 def ef_compress_tree_(grads: Any, err_tree: Any) -> Any:
     """:func:`ef_compress_tree` with the residual in place: each leaf's
-    new residual is written into ``err_tree``, and the decompressed
-    updates are returned; the values are :func:`ef_compress`'s bit for
-    bit, and a leaf's temporaries are freed before the next leaf's.  The
-    gradients are only read: two of autograd's may share storage."""
-    def one(g, err):
-        d, e = ef_compress(g, err)
-        err.copy_(e)
-        return d
-    return tree_map(one, grads, err_tree)
+    new residual is written into ``err_tree`` (:func:`ef_compress_`), and
+    the decompressed updates are returned; the values are
+    :func:`ef_compress`'s bit for bit, and a leaf's temporaries are freed
+    before the next leaf's.  The gradients are only read: two of
+    autograd's may share storage."""
+    return tree_map(ef_compress_, grads, err_tree)
 
 
 def ef_state_init(params: Any) -> Any:

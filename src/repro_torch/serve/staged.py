@@ -116,11 +116,29 @@ def _addresses(tree) -> Tuple[int, ...]:
     return (tree.data_ptr(),) if isinstance(tree, torch.Tensor) else ()
 
 
+#: the side stream every staged function of a device captures on.
+#: PyTorch keeps a cuBLAS workspace for each (thread, stream) that ran a
+#: GEMM until the process ends, so a fresh stream per staged function
+#: would leave workspaces behind with every engine or training run
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """``device``'s side stream (made at the first call)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 class _Staged:
     """What every staged function shares (the engine's three here, the
-    train step in ``repro_torch.train.staged``): the side stream and the
-    memory pool their captures use, the params address check, and capture
-    and replay with the counts a graph carries."""
+    train step in ``repro_torch.train.staged``): the side stream their
+    captures use (one per device, :func:`side_stream`), a memory pool per
+    function, the params address check, and capture and replay with the
+    counts a graph carries."""
 
     def __init__(self, step: Callable, device):
         self.step = step
@@ -134,7 +152,7 @@ class _Staged:
         self._mempool = self._stream = None
         if self.device.type == "cuda":
             self._mempool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = side_stream(self.device)
 
     def _check_params(self, params) -> None:
         addresses = _addresses(params)

@@ -12,10 +12,16 @@ into float32 zeros and divided, as the reference's are.  That step runs
 eagerly and returns new trees; the launcher pages the state in before it
 and out after it (the reference's host-stage path).
 ``make_train_step_`` is the same step on static buffers, updating params
-and state in place and paging the state in and out itself, which is what
-``train.staged.StagedTrainStep`` captures as one CUDA graph (the
-counterpart of the reference's ``jax.jit(make_train_step(...))`` with the
-state streamed between tiers inside the step).
+and state in place and paging a parked state in and out itself, which is
+what ``train.staged.StagedTrainStep`` captures as one CUDA graph (the
+counterpart of the reference's ``jax.jit(make_train_step(...))``).  It
+pages in one of two schedules.  The serial one copies the whole state in
+on the current stream, runs the step, and copies it out.  The streamed
+one is the counterpart of the reference's in-jit offload mode, where
+memory-kind annotations let XLA stream the state between HBM and host
+memory around the update: each leaf moves on a device's copy streams,
+host to device from the step's start and device to host as soon as it
+is updated, beside the forward and backward passes and the update.
 ``abstract_train_state`` gives the params and the optimizer state as
 ``meta`` tensors (shapes and dtypes, no storage) for the dry run.
 """
@@ -28,11 +34,15 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.core.offload import page_in, page_out
+from repro_torch.core.offload import (CopyStreams, leaf_at, page_in,
+                                     page_in_streamed, page_out,
+                                     page_out_streamed)
 from repro_torch.models.zoo import Model
-from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     adamw_update_, tree_leaves, tree_map)
-from repro_torch.optim.compression import (ef_compress_tree,
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_leaf_,
+                                     adamw_scalars_, adamw_update,
+                                     adamw_update_, tree_leaves, tree_map,
+                                     tree_paths)
+from repro_torch.optim.compression import (ef_compress_, ef_compress_tree,
                                            ef_compress_tree_, ef_state_init)
 
 
@@ -152,8 +162,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
 
 def make_train_step_(model: Model, opt_cfg: AdamWConfig,
-                     grad_accum: int = 1,
-                     compress_grads: bool = False) -> Callable:
+                     grad_accum: int = 1, compress_grads: bool = False,
+                     streams: Optional[CopyStreams] = None) -> Callable:
     """The step on static buffers, everything in place, as a CUDA graph
     can hold it: returns step_(params, opt_state, batch, out, clock=None)
     -> out.
@@ -162,15 +172,26 @@ def make_train_step_(model: Model, opt_cfg: AdamWConfig,
     int32; ``src_emb`` for the encoder-decoder), ``out`` the static 0-d
     float32 outputs ``loss``, ``lr`` and ``grad_norm``, written in place.
     ``opt_state`` is the state where it is parked: its pinned host leaves
-    are paged to the card at the start (:func:`page_in`) and the updated
-    values copied back at the end (:func:`page_out`), so their device
-    copies live only while the step runs; leaves already on the device
-    (the state kept on the card, or any CPU run) are updated where they
-    are.  Params and state are updated in place with
-    :func:`adamw_update_` and :func:`ef_compress_tree_`, bit for bit what
-    :func:`make_train_step` computes.  No value is read on the host.  A
-    :class:`StepClock`, when given, times ``page_in``, ``fwd_bwd``,
-    ``compress``, ``adamw`` and ``page_out``."""
+    are paged to the card for the step and the updated values copied
+    back, so their device copies live only while the step runs; leaves
+    already on the device (the state kept on the card, or any CPU run)
+    are updated where they are.  Params and state are updated in place
+    with :func:`adamw_update_` and :func:`ef_compress_tree_` (or their
+    per-leaf parts), bit for bit what :func:`make_train_step` computes.
+    No value is read on the host.
+
+    Without ``streams`` the page moves run in series with the step on
+    the current stream (the serial schedule): :func:`page_in`, the
+    forward and backward passes, compression, AdamW, :func:`page_out`.
+    A :class:`StepClock`, when given, times ``page_in``, ``fwd_bwd``,
+    ``compress``, ``adamw`` and ``page_out``.  With ``streams`` (a
+    device's :class:`CopyStreams`) the step streams the state beside its
+    compute, as XLA schedules the reference's in-jit offload; see
+    :func:`_streamed_step`.  The stages overlap there, so a clock times
+    the whole ``step``."""
+    if streams is not None:
+        return _streamed_step(model, opt_cfg, grad_accum, compress_grads,
+                              streams)
 
     def lap(clock, name):
         if clock is not None:
@@ -191,12 +212,94 @@ def make_train_step_(model: Model, opt_cfg: AdamWConfig,
         lap(clock, "adamw")
         page_out(state, opt_state)
         lap(clock, "page_out")
-        out["loss"].copy_(loss)
-        out["lr"].copy_(metrics["lr"])
-        out["grad_norm"].copy_(metrics["grad_norm"])
+        return _outputs(out, loss, metrics["lr"], metrics["grad_norm"])
+
+    return step_
+
+
+def _outputs(out, loss, lr, grad_norm):
+    out["loss"].copy_(loss)
+    out["lr"].copy_(lr)
+    out["grad_norm"].copy_(grad_norm)
+    return out
+
+
+def _streamed_step(model: Model, opt_cfg: AdamWConfig, grad_accum: int,
+                   compress_grads: bool, streams: CopyStreams) -> Callable:
+    """:func:`make_train_step_` with the state streamed leaf by leaf on
+    ``streams``' two copy streams, ordered by the step's data
+    dependencies alone:
+
+    * page-in, on the H2D stream, every copy issued when the step
+      starts (beside the forward and backward passes), first what is
+      needed first: ``count``, then each ``ef_err`` leaf (compression
+      needs them right after the backward pass, and the global norm
+      every decompressed gradient before any leaf is updated), then
+      each leaf's ``m``, ``v`` and ``master`` in the order the update
+      visits them (:func:`tree_paths`);
+    * on the current stream, compression of leaf i once its ``ef_err``
+      has landed, the scalars (``count`` advanced) once ``count`` has,
+      and AdamW of leaf i once its ``m``, ``v`` and ``master`` have;
+    * page-out, on the D2H stream, of each leaf as soon as it is
+      written: leaf i's ``ef_err`` after its compression, its ``m``,
+      ``v`` and ``master`` after its update, ``count`` last;
+    * both copy streams joined to the current one before the step
+      returns.
+
+    The values are the serial schedule's bit for bit: the same
+    expressions, each leaf independent of the others, the global norm
+    summed in the same order.  Every device copy of the state is
+    allocated on the current stream before the copy streams fork from
+    it and lives until they are joined back, so the allocator never
+    hands its memory on while a copy is in flight; the peak is the
+    serial schedule's (every leaf on the card at once)."""
+
+    def step_(params, opt_state, batch, out,
+              clock: Optional[StepClock] = None):
+        if clock is not None:
+            clock.start()
+        paths = tree_paths(params)
+        order = ([("count",)] + [("ef_err",) + p for p in paths
+                                 if compress_grads]
+                 + [(k,) + p for p in paths for k in ("m", "v", "master")])
+        state, arrived = page_in_streamed(opt_state, order, streams)
+        compute = streams.current()
+        loss, grads = _loss_and_grads(model, params, batch, grad_accum)
+        if compress_grads:
+            dec = {}
+            for p in paths:
+                streams.wait(compute, arrived[("ef_err",) + p])
+                _put(dec, p, ef_compress_(leaf_at(grads, p),
+                                          leaf_at(state["ef_err"], p)))
+                page_out_streamed(state, opt_state, [("ef_err",) + p],
+                                  streams.record(compute), streams)
+            grads = dec
+        streams.wait(compute, arrived[("count",)])
+        scalars = adamw_scalars_(opt_cfg, grads, state["count"])
+        for p in paths:
+            kinds = [(k,) + p for k in ("m", "v", "master")]
+            for path in kinds:
+                streams.wait(compute, arrived[path])
+            adamw_leaf_(opt_cfg, scalars, leaf_at(grads, p),
+                        *(leaf_at(state, path) for path in kinds),
+                        leaf_at(params, p))
+            page_out_streamed(state, opt_state, kinds,
+                              streams.record(compute), streams)
+        page_out_streamed(state, opt_state, [("count",)],
+                          streams.record(compute), streams)
+        streams.join()
+        _outputs(out, loss, scalars[0], scalars[1])
+        if clock is not None:
+            clock.lap("step")
         return out
 
     return step_
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
 
 
 def opt_state_init(params, compress_grads: bool = False):

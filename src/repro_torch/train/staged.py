@@ -2,13 +2,18 @@
 
 Counterpart of ``repro/launch/train.py:61``, where the reference stages
 its train step with ``jax.jit(make_train_step(...))`` and dispatches the
-whole step as one program each call; with the optimizer state offloaded,
-XLA streams it between HBM and host memory around the update inside that
-program (``repro/train/loop.py:9-12``).  Here the step is
-``make_train_step_`` (``repro_torch.train.loop``), which reads its batch
-from static buffers, updates params and state in place and pages the
-parked state in and out itself; :class:`StagedTrainStep` captures it as
-one CUDA graph, page-in and page-out copies included, and replays it.
+whole step as one program each call; with the optimizer state offloaded
+in its in-jit mode, XLA streams the state between HBM and host memory
+around the update inside that program (``repro/train/loop.py:9-12``).
+Here the step is ``make_train_step_`` (``repro_torch.train.loop``), which
+reads its batch from static buffers, updates params and state in place
+and pages the parked state in and out itself; :class:`StagedTrainStep`
+captures it as one CUDA graph, page moves included, and replays it.  In
+the streamed schedule the graph holds three branches: the H2D copies,
+the step's compute and the D2H copies, joined by one event per leaf and
+direction (the copy streams, ``core.offload.copy_streams``, are the
+device's, shared by every streamed step on it); in the serial schedule
+the copies run in series with the compute on the capture stream.
 
 It counts calls as the engine's staged functions do
 (``repro_torch.serve.staged``, whose capture and replay it shares): the
@@ -17,16 +22,18 @@ step, with nothing run, and replays the graph for its own result, and
 every later step replays.  A run's batch never changes shape, so there is
 one graph.  It reads params and state at the addresses it was captured
 with; a call with other tensors raises.  A capture that fails raises:
-there is no eager fallback on the card.
+there is no eager fallback on the card, and no fallback from the
+streamed schedule to the serial one.
 
-The eager first step runs on the side stream the capture uses, so the
-capture finds that stream's lazily made state (the cuBLAS workspace) in
-place.  After that step the allocator's cache still holds about the
-step's peak, while the capture allocates from the graph's own pool; the
-cache is released before capturing, or the two together could outgrow
-the card.  With the state parked in pinned host memory, its device copy
-lives in the graph's pool, only while a replay runs: between steps that
-memory is reserved, not allocated.
+The eager first step runs on the side stream the capture uses (the
+device's, shared with the engine's staged functions), forking the same
+copy streams, so the capture finds that stream's lazily made state (the
+cuBLAS workspace) in place.  After that step the allocator's cache still
+holds about the step's peak, while the capture allocates from the
+graph's own pool; the cache is released before capturing, or the two
+together could outgrow the card.  With the state parked in pinned host
+memory, its device copy lives in the graph's pool, only while a replay
+runs: between steps that memory is reserved, not allocated.
 
 On the CPU (the caller asked for it, as the tests do) the same static
 step is called directly; no graph exists.
@@ -42,12 +49,6 @@ from repro_torch.serve.staged import _Graph, _Staged
 
 #: the static outputs of a step, 0-d float32
 OUTPUTS = ("loss", "lr", "grad_norm")
-#: the side stream every staged train step of a device runs and captures
-#: on.  PyTorch keeps a cuBLAS workspace for each (thread, stream) that
-#: ran a GEMM until the process ends, so a fresh stream a run would leave
-#: two behind each time (the forward's, and the backward's on autograd's
-#: thread)
-_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 class StagedTrainStep(_Staged):
@@ -58,13 +59,13 @@ class StagedTrainStep(_Staged):
     tensors), ``outputs`` maps ``loss``, ``lr`` and ``grad_norm`` to the
     static outputs, valid until the next call, and ``mode`` is
     ``"eager"``, ``"capture"`` or ``"replay"``.  A :class:`StepClock`
-    times the stages of an eager step only."""
+    times an eager step's stages (the serial schedule's five, or the
+    streamed step whole), and a capture or a replay whole (``capture``,
+    ``replay``): inside a graph no stage can be timed apart."""
 
     def __init__(self, step_: Callable, template: Dict[str, torch.Tensor],
                  *, device):
         super().__init__(step_, device)
-        if self._stream is not None:
-            self._stream = _STREAMS.setdefault(self.device, self._stream)
         self.batch = {k: torch.zeros(v.shape, dtype=v.dtype,
                                      device=self.device)
                       for k, v in template.items()}
@@ -104,11 +105,16 @@ class StagedTrainStep(_Staged):
         if self.device.type != "cuda":
             self.eager_steps += 1
             return self.step(*args, clock), "eager"
-        if self.graph is None and self.steps > 1:
-            self.graph = self._capture(args)
-            return self._replay(self.graph), "capture"
-        if self.graph is not None:
-            return self._replay(self.graph), "replay"
+        if self.steps > 1:
+            mode = "replay" if self.graph is not None else "capture"
+            if clock is not None:
+                clock.start()
+            if self.graph is None:
+                self.graph = self._capture(args)
+            out = self._replay(self.graph)
+            if clock is not None:
+                clock.lap(mode)
+            return out, mode
         self.eager_steps += 1
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)

@@ -291,6 +291,25 @@ def test_static_step_reads_no_value_on_the_host(arch):
     has no values, so a read on the host (``int()``, ``.item()``, a
     branch on a tensor) raises, and no tensor is built from host data.
     The step runs and leaves every leaf where it was."""
+    _step_on_meta(arch)
+
+
+class _PagingHostStreams(offload.HostStreams):
+    """Host streams on ``meta`` that page every leaf: the streamed page
+    moves allocate and copy, on tensors without values."""
+
+    def moves(self, leaf):
+        return True
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_streamed_step_reads_no_value_on_the_host(arch):
+    """The same for the streamed schedule, every leaf paged in and out
+    (fresh ``meta`` device copies) under the refusal mode."""
+    _step_on_meta(arch, _PagingHostStreams("meta"))
+
+
+def _step_on_meta(arch, streams=None):
     cfg = get_config(arch).reduced()
     model = build_model(cfg, Flags(remat=False, attn_chunk=SEQ),
                         device="cpu")
@@ -305,7 +324,8 @@ def test_static_step_reads_no_value_on_the_host(arch):
     leaves = [l.data_ptr() for l in tree_leaves(params) + tree_leaves(state)]
     with pytest.raises(RuntimeError):
         int(state["count"])
-    step_ = make_train_step_(model, adamw.AdamWConfig(), 2, True)
+    step_ = make_train_step_(model, adamw.AdamWConfig(), 2, True,
+                             streams=streams)
     with _HostDataRefused():
         got = step_(params, state, batch, outs)
     assert got is outs and all(v.device.type == "meta" and v.shape == ()
