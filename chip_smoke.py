@@ -53,6 +53,9 @@ Phases (any failure raises and the script exits non-zero):
      weights from a seed, KV paged over an LMB tier in pinned host memory
      and spilling to it; launch counts are reset just before and read just
      after this run, and a second run times each engine stage apart.
+     The breakdown also times each LMB burst of the executor (the card
+     synchronised around it) and prints ``decode_view`` split into those
+     bursts and the rest, with the reads' and writes' GB/s.
      Every paged serve phase (3, 4b, 4f-4h) runs the engine as it comes:
      each batch size's first round eager, then the paged step captured
      as one CUDA graph per batch size and replayed, its launch counts
@@ -97,6 +100,18 @@ Phases (any failure raises and the script exits non-zero):
   3q. ``examples/quickstart_torch.py`` on the card (the L2P buffer's
      onboard pages on the card, its LMB tier in pinned host memory) and on
      the CPU, in this process: equal L2P statistics and fabric snapshot;
+  3t. the LMB tier under stress: a ``LinkedBuffer`` of 16 pages over 4
+     onboard, at qwen2-1.5b's KV page (917,504 B, 300 operations) and
+     chameleon-34b's (6,291,456 B, 200), driven through seeded scalar and
+     batched reads and writes (waves), pages freed and held again and
+     prefetch bursts, on the card (every burst on the copy streams, never
+     waited for on the host) and on the CPU (modelling mode): every
+     read's fingerprint, every page, the LMB pools' bytes after a sync,
+     hits, misses, link bytes, residency and prefetch counters equal;
+  3w. reduced qwen2-1.5b in f32, 6 requests through 4 decode slots over 4
+     onboard pages (every view waves), on the card and on the CPU: equal
+     streams, link bytes, hits, misses, residency and modelled waits, and
+     every pool's rows within 1e-4;
   Every dense slot serve phase (4, 4c, 4e, 4i, and phase 5's dense
      configs on the card) runs the engine as it comes, staged, and fails
      unless each slot's first step ran eagerly, its second captured and
@@ -1173,7 +1188,30 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
             return out
         return run
 
+    bursts = {}
+
+    def burst(kind, fn, ex):
+        # an executor burst against a pinned LMB pool, timed with the card
+        # synchronised around it, charged to the engine stage running it
+        def run(pool, slots, *rest):
+            if not ex.streams.moves(pool):
+                return fn(pool, slots, *rest)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            out = fn(pool, slots, *rest)
+            torch.cuda.synchronize()
+            into = bursts.setdefault(stage[0] or "other", dict.fromkeys(
+                ("read_s", "read_bytes", "write_s", "write_bytes"), 0))
+            into[f"{kind}_s"] += time.monotonic() - t
+            into[f"{kind}_bytes"] += len(slots) * pool[0].numel() * \
+                pool.element_size()
+            return out
+        return run
+
     def instrument(eng):
+        ex = eng.kv.buf.executor
+        ex._read_pages = burst("read", ex._read_pages, ex)
+        ex._write_pages = burst("write", ex._write_pages, ex)
         # the staged step of either path: the paged one or the slots'
         staged[0] = eng.staged is not None
         eng._prefill_fn = timed("prefill", eng._prefill_fn, acc)
@@ -1208,8 +1246,33 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
         out["capture_s_in_prefill"] = eng.staged_prefill.capture_s
     if inner:
         out["apart"] = inner
+    if bursts:
+        out["bursts"] = bursts
     print("  breakdown (s, summed over the run): " + json.dumps(out))
+    if "decode_view" in bursts:
+        print("  " + burst_text(out))
     return out
+
+
+def burst_text(bd: dict) -> str:
+    """``decode_view`` split into the executor's LMB bursts (reads and
+    writes, the card synchronised around each) and the rest, with each
+    direction's rate, and ``commit_decode``'s bursts."""
+    def rate(b, kind):
+        return _gbps(b[f"{kind}_bytes"], b[f"{kind}_s"])
+    dv = bd["bursts"]["decode_view"]
+    cd = bd["bursts"].get("commit_decode")
+    text = (f"decode_view {bd['decode_view']:.3f} s: executor bursts "
+            f"{dv['read_s'] + dv['write_s']:.3f} s (reads "
+            f"{dv['read_bytes']:,} B in {dv['read_s']:.3f} s, "
+            f"{rate(dv, 'read'):.1f} GB/s; writes {dv['write_bytes']:,} B "
+            f"in {dv['write_s']:.3f} s, {rate(dv, 'write'):.1f} GB/s), rest "
+            f"{bd['decode_view'] - dv['read_s'] - dv['write_s']:.3f} s")
+    if cd:
+        text += (f"; commit_decode {bd['commit_decode']:.3f} s, bursts "
+                 f"{cd['read_s'] + cd['write_s']:.3f} s (reads "
+                 f"{cd['read_bytes']:,} B, writes {cd['write_bytes']:,} B)")
+    return text
 
 
 def serve_phases(torch, lens, news, prompts) -> dict:
@@ -1889,6 +1952,191 @@ def quickstart_phase(torch) -> None:
           f"pages on the card, the LMB tier in pinned host memory) and on "
           f"the CPU: equal L2P stats and fabric snapshot; "
           f"{lines['cuda'][0][:160]}...; {time.monotonic() - t0:.1f} s")
+
+
+#: phase 3t: the LMB tier's page geometries (qwen2-1.5b's KV page of
+#: 917,504 B and chameleon-34b's of 6,291,456 B, bf16) and each run's
+#: seeded operations
+STRESS_PAGES = (("qwen2-1.5b", (28, 2, 32, 2, 128), 300),
+                ("chameleon-34b", (48, 2, 32, 8, 128), 200))
+
+
+def stress_run(torch, device, shape, n_ops, seed=0) -> dict:
+    """A ``LinkedBuffer`` of 16 pages over 4 onboard on ``device``,
+    driven through ``n_ops`` seeded operations: scalar and batched reads
+    and writes (batches past the onboard tier wave) and the evictions
+    they force, pages freed and held again, and prefetch bursts into the
+    slots that frees.  Every read leaves a fingerprint (its bits
+    summed with position weights, on the device); returns them, every
+    page and the buffer's counters, the card synchronised first."""
+    import numpy as np
+    from repro_torch.core import TierExecutor, system_for
+    from repro_torch.core.buffer import LinkedBuffer
+    from repro_torch.core.metrics import Metrics
+
+    n = 16
+    buf = LinkedBuffer(
+        name="stress", device_id="dev0",
+        host=system_for("dev0", pool_gib=2, page_bytes=4096).host(),
+        executor=TierExecutor(device), page_shape=shape,
+        dtype=torch.bfloat16, onboard_pages=4, policy="cost",
+        prefetch_depth=2, metrics=Metrics())
+    buf.append_pages(n)
+    gen = torch.Generator().manual_seed(seed)
+    data = torch.randn((24, *shape), generator=gen).to(torch.bfloat16)
+    numel = data[0].numel()
+    weight = torch.arange(1, numel + 1, device=device, dtype=torch.int64) % \
+        65521
+
+    def mark(x):
+        bits = x.reshape(x.shape[0], -1).view(torch.int16).to(torch.int64)
+        return (bits * weight).sum(dim=1)
+    rng = np.random.default_rng(seed)
+    marks = []
+    for _ in range(n_ops):
+        kind = rng.integers(0, 6)
+        if kind == 0:
+            buf.write(int(rng.integers(0, n)),
+                      data[int(rng.integers(0, len(data)))].to(device))
+        elif kind == 5:
+            # the page's storage freed and the page held again (zeros):
+            # an onboard slot a prefetch burst can fill
+            p = int(rng.integers(0, n))
+            buf.release(p)
+            buf.share(p)
+        elif kind == 1:
+            marks.append(mark(buf.read(int(rng.integers(0, n)))[None]))
+        elif kind == 2:
+            pages = [int(x) for x in rng.integers(0, n, 6)]
+            which = [int(x) for x in rng.integers(0, len(data), 6)]
+            buf.write_many(pages, data[which].to(device))
+        elif kind == 3:
+            pages = [int(x) for x in rng.integers(0, n, 7)]
+            marks.append(mark(buf.read_many(pages)))
+        else:
+            buf.schedule_prefetch([int(x) for x in rng.integers(0, n, 3)])
+    if device != "cpu":
+        torch.cuda.synchronize()
+    lmb = {p: buf._lmb_pools[e.slot // buf._lmb_chunk_pages][
+               e.slot % buf._lmb_chunk_pages].clone()
+           for p, e in enumerate(buf._pages) if e.tier == "lmb"}
+    pages = buf.read_many(list(range(n))).cpu()
+    c = buf.metrics.tier("stress", "onboard")
+    out = {"marks": torch.cat(marks).cpu(), "pages": pages, "lmb": lmb,
+           "hits": c.hits, "misses": c.misses,
+           "op_bytes": buf.host.fm.op_bytes(),
+           "tiers": [buf.tier_of(p) for p in range(n)],
+           "prefetch": buf.prefetch_stats(), "link_wait_s": buf.link_wait_s,
+           "pinned": buf.executor.real_host_tier}
+    buf.check_invariants()
+    return out
+
+
+def tier_stress_phase(torch) -> None:
+    """Phase 3t: ``stress_run`` on the card (the LMB tier in pinned host
+    memory, every burst on the copy streams, nothing waited for on the
+    host) and on the CPU (modelling mode), at both page sizes: every
+    read's fingerprint, every page, the LMB pools' bytes of every
+    LMB-resident page after a sync, hits, misses, link bytes, residency,
+    prefetch counters and the modelled link wait must be equal."""
+    for name, shape, n_ops in STRESS_PAGES:
+        t0 = time.monotonic()
+        card = stress_run(torch, "cuda", shape, n_ops)
+        t_card = time.monotonic() - t0
+        cpu = stress_run(torch, "cpu", shape, n_ops)
+        nbytes = card["pages"][0].numel() * 2
+        if not card["pinned"] or cpu["pinned"]:
+            raise AssertionError("phase 3t: the card's run did not page "
+                                 "through pinned host memory")
+        if not torch.equal(card["marks"], cpu["marks"]):
+            bad = int((card["marks"] != cpu["marks"]).sum())
+            raise AssertionError(f"phase 3t {name}: {bad} of "
+                                 f"{len(cpu['marks'])} pages read on the "
+                                 "card differ from the CPU's")
+        if not torch.equal(card["pages"], cpu["pages"]) or \
+                card["lmb"].keys() != cpu["lmb"].keys() or \
+                not all(torch.equal(card["lmb"][p], cpu["lmb"][p])
+                        for p in cpu["lmb"]):
+            raise AssertionError(f"phase 3t {name}: pages differ")
+        for key in ("hits", "misses", "op_bytes", "tiers", "prefetch",
+                    "link_wait_s"):
+            if card[key] != cpu[key]:
+                raise AssertionError(f"phase 3t {name}: {key} "
+                                     f"{card[key]} != {cpu[key]}")
+        print(f"phase 3t: {name} pages of {nbytes:,} B, 16 over 4 onboard, "
+              f"{n_ops} seeded operations on the card (LMB tier pinned, "
+              f"bursts on the copy streams) and on the CPU: {len(cpu['marks'])}"
+              f" reads, every page, {len(cpu['lmb'])} LMB-resident pages' "
+              f"pool bytes, hits {cpu['hits']}, misses {cpu['misses']}, link "
+              f"bytes {cpu['op_bytes']} and prefetch "
+              f"{cpu['prefetch']['pages']} pages equal; card run "
+              f"{t_card:.2f} s")
+
+
+def reduced_wave_phase(torch) -> None:
+    """Phase 3w: reduced qwen2-1.5b in f32, 4 decode slots over 4 onboard
+    pages (every round's view waves and evicts), on the card (kernels,
+    the LMB tier pinned and paged on the copy streams) and on the CPU
+    (plain versions, modelling mode), the same params and prompts: token
+    streams, link bytes per class, hits, misses and every pool's rows
+    after a sync must agree (pools within 1e-4: the two devices compute
+    the KV in different orders)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.metrics import GLOBAL_METRICS
+    from repro_torch.models import build_model
+    from repro_torch.models.flags import Flags
+    from repro_torch.serve import EngineConfig
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    flags = Flags(remat=False, use_kernels=True)
+    cpu_params = build_model(cfg, flags, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(8)
+    specs = [(rng.integers(0, 100, 20).astype(np.int32), 6)
+             for _ in range(6)]
+    ecfg = EngineConfig(decode_slots=4, max_seq_len=64, page_tokens=8,
+                        onboard_pages=4, round_time_s=1e-3)
+    runs = []
+    for device in ("cpu", "cuda"):
+        GLOBAL_METRICS.reset()
+        params = cpu_params if device == "cpu" else _to(cpu_params, device)
+        eng, rids, _, _, system = serve(torch, cfg, flags, params, specs,
+                                        ecfg, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        buf = eng.kv.buf
+        c = buf.metrics.tier(buf.name, "onboard")
+        runs.append({
+            "streams": [eng.requests[r].out_tokens for r in rids],
+            "op_bytes": buf.host.fm.op_bytes(), "hits": c.hits,
+            "misses": c.misses, "stats": buf.stats(),
+            "pools": [None if p is None else p.cpu().clone()
+                      for p in buf._lmb_pools] + [buf._onboard_pool.cpu()],
+            "pinned": buf.executor.real_host_tier})
+        system.close()
+    cpu, card = runs
+    if not card["pinned"] or card["misses"] <= 0:
+        raise AssertionError("phase 3w: the card's KV did not wave through "
+                             "a pinned LMB tier")
+    for key in ("streams", "op_bytes", "hits", "misses"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"phase 3w: {key} {card[key]} != "
+                                 f"{cpu[key]}")
+    for key in ("resident", "link_wait_s", "prefetch", "lmb_placement"):
+        if card["stats"][key] != cpu["stats"][key]:
+            raise AssertionError(f"phase 3w: {key} {card['stats'][key]} "
+                                 f"!= {cpu['stats'][key]}")
+    err = max(check(f"pool {i}", a, b, 1e-4)
+              for i, (a, b) in enumerate(zip(card["pools"], cpu["pools"]))
+              if a is not None)
+    print(f"phase 3w: reduced qwen2-1.5b f32, 6 requests through 4 slots "
+          f"over 4 onboard pages, card (pinned LMB tier, copy streams) "
+          f"against CPU: streams identical "
+          f"({sum(map(len, cpu['streams']))} tokens), link bytes "
+          f"{cpu['op_bytes']}, hits {cpu['hits']}, misses {cpu['misses']}, "
+          f"residency and modelled waits equal; {len(cpu['pools'])} pools "
+          f"within {err:.2e}")
 
 
 def sync_refusal_phase(torch) -> None:
@@ -3346,6 +3594,8 @@ def main(argv=None) -> int:
     staged_dense_phase(torch, lens, news, card)
     prefilled = staged_prefill_phase(torch, lens, card)
     quickstart_phase(torch)
+    tier_stress_phase(torch)
+    reduced_wave_phase(torch)
     seamless = seamless_phase(torch)
     served.update(new_serve_phases(torch, lens, news))
     swept = sweep_phase(torch, card)
@@ -3399,6 +3649,10 @@ def main(argv=None) -> int:
               f"{res['mean_round_s'] * 1e3:.2f} ms, peak "
               f"{res['peak_mem_gib']:.2f} GiB, link bytes "
               f"{res['lmb_link_bytes']} on {card}")
+    for name, res in served.items():
+        if "decode_view" in res["breakdown"].get("bursts", {}):
+            print(f"decode_view split {name}: "
+                  f"{burst_text(res['breakdown'])} on {card}")
     for name, res in swept.items():
         tot = res["report"].totals
         ms = [r * 1e3 for r in res["rounds"]]

@@ -1285,6 +1285,8 @@ class LinkedBuffer:
                     s for s in self._lmb_free[home]
                     if not base <= s < base + self._lmb_chunk_pages]
             self._lmb_allocs[chunk].free()
+            # (f) a pool is dropped only once its copies have landed
+            self.executor.settle()
             self._lmb_pools[chunk] = None
             self._lmb_allocs[chunk] = None
             self._lmb_homes[chunk] = -1
@@ -1303,6 +1305,7 @@ class LinkedBuffer:
         self._closed = True
         self.host.fm.off_failover(self._on_failover)
         self.host.fm.off_repair(self._on_repair)
+        self.executor.settle()      # (f): the pools' copies have landed
         for chunk, handle in enumerate(self._lmb_allocs):
             if handle is None:
                 continue
@@ -1349,6 +1352,7 @@ class LinkedBuffer:
             eid: [s for s in lst
                   if s // self._lmb_chunk_pages not in dead]
             for eid, lst in self._lmb_free.items()}
+        self.executor.settle()      # (f): the pools' copies have landed
         for chunk in dead:
             # the FM re-granted the underlying blocks blank; the old
             # allocation bookkeeping is unrecoverable, so drop references

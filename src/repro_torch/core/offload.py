@@ -11,9 +11,13 @@ Two tiers, as in ``repro.core.offload``:
 Two modes, chosen by the executor's device:
 
   * **CUDA**: the onboard pool is a device tensor and each LMB chunk pool
-    is a pinned host tensor.  A read burst is one ``index_select`` into a
-    pinned staging tensor plus one ``.to(device, non_blocking=True)``; a
-    write burst is one device-to-host copy plus one ``index_copy_``.
+    is a pinned host tensor.  A burst moves pages with the card's copy
+    engines, as the reference's one DMA descriptor per run does: one
+    asynchronous copy per run of consecutive slots, straight between the
+    pinned pool and device rows, reads on the device's H2D copy stream and
+    writes on its D2H copy stream (:class:`CopyStreams`), ordered by
+    events and never waited for on the host (:meth:`TierExecutor.settle`
+    waits).
   * **CPU** (modelling mode, what the tests run): both pools are CPU
     tensors and only the accounting tells the tiers apart — the same mode
     the JAX reference takes when its backend reports no host memories.
@@ -51,7 +55,7 @@ modelling mode.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -194,6 +198,16 @@ class CopyStreams:
         """Whether a parked leaf is paged (it is in pinned host memory)."""
         return tier_of(leaf) == PINNED_HOST
 
+    def keep(self, tensor: torch.Tensor, stream) -> None:
+        """``tensor``'s memory is not handed out again before the work
+        issued on ``stream`` so far is done (a copy there still reads
+        it, after the compute stream may have dropped it)."""
+        tensor.record_stream(stream)
+
+    def synchronize(self, event) -> None:
+        """The host waits for ``event``."""
+        event.synchronize()
+
     def fork(self, stream) -> None:
         """``stream`` waits for what the current stream has issued."""
         self.wait(stream, self.record(self.current()))
@@ -230,6 +244,12 @@ class HostStreams(CopyStreams):
 
     def copy_(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
+
+    def keep(self, tensor: torch.Tensor, stream) -> None:
+        pass
+
+    def synchronize(self, event) -> None:
+        pass
 
 
 #: each card's copy streams, shared by every streamed step on it
@@ -364,14 +384,32 @@ class PinnedArena:
             self._slab = None
 
 
+def _runs(slots: Sequence[int]) -> List[List[int]]:
+    """``[position, first slot, length]`` of each maximal run of
+    ``slots`` whose entries are consecutive slots; a repeated slot starts
+    a run of its own."""
+    runs: List[List[int]] = []
+    for i, s in enumerate(map(int, slots)):
+        if runs and s == runs[-1][1] + runs[-1][2]:
+            runs[-1][2] += 1
+        else:
+            runs.append([i, s, 1])
+    return runs
+
+
 class TierExecutor:
     """Executes LinkedBuffer page moves on torch tensors.
 
     Pages live in a pool tensor per tier; moves are slice copies.  On CUDA
     the LMB-tier pools are pinned host tensors (real host residency, real
-    PCIe transfers); on the CPU the LMB tier is a plain CPU tensor and only
+    PCIe transfers): a burst against one is one asynchronous copy per run
+    of consecutive slots on the device's copy streams (``streams``, from
+    :func:`copy_streams`), so neither the host nor the compute stream
+    waits for the link, and every consumer on the compute stream sees the
+    pages landed.  On the CPU the LMB tier is a plain CPU tensor and only
     the accounting distinguishes tiers (pure modelling mode — still
-    exercises every allocator/policy path).
+    exercises every allocator/policy path); nothing is copied on a
+    stream there.
     """
 
     def __init__(self, device="cuda", *,
@@ -381,6 +419,11 @@ class TierExecutor:
         self.lmb_memory_kind = (PINNED_HOST if self.device.type == "cuda"
                                 else DEVICE)
         self.real_host_tier = self.lmb_memory_kind != DEVICE
+        #: the copy streams LMB bursts run on; ``streams.moves(pool)``
+        #: tells which pools they move (the pinned ones)
+        self.streams = copy_streams(self.device)
+        #: the event after the last read (H2D) and write (D2H) burst
+        self._read_done = self._write_done = None
         #: span tracer for coalesced pool transfers (wall-clock spans)
         self.trace = trace if trace is not None else GLOBAL_TRACER
         #: QoS hook charged with nbytes for every page crossing the
@@ -422,12 +465,32 @@ class TierExecutor:
                    page: torch.Tensor) -> torch.Tensor:
         """In place: ``pool[slot] = page``; returns the pool."""
         self._meter(pool, self._page_bytes(pool))
-        pool[slot].copy_(self._to_tier(pool, page))
-        return pool
+        return self._write_pages(pool, [slot], page[None])
+
+    def move_page(self, src_pool: torch.Tensor, src_slot: int,
+                  dst_pool: torch.Tensor, dst_slot: int) -> torch.Tensor:
+        """``dst_pool[dst_slot] = src_pool[src_slot]`` through the device
+        (a read, then a write: both tiers' meters charged); returns
+        ``dst_pool``."""
+        return self.write_page(dst_pool, dst_slot,
+                               self.read_page(src_pool, src_slot))
+
+    def settle(self) -> None:
+        """Return once every burst issued so far has landed: (f) before a
+        pool is dropped, and (g) before host code reads a pinned pool's
+        bytes."""
+        for event in (self._read_done, self._write_done):
+            if event is not None:
+                self.streams.synchronize(event)
 
     # ---- coalesced multi-page transfers (the batched data path) ----
-    # One gather/scatter against the pool instead of N slice copies, and
+    # One copy per run of consecutive slots instead of N slice copies (on
+    # a pinned pool, one DMA per run, as the reference's TPU gather), and
     # the meter hook (when bound) sees ONE charge for the burst's bytes.
+    # On a pinned pool the copies are queued on the copy streams and the
+    # host does not wait, so the ``exec.read_pages`` / ``exec.write_pages``
+    # spans time the issue of a burst, not its transfer; chip_smoke.py's
+    # burst breakdown synchronises to time the transfer.
 
     def read_pages(self, pool: torch.Tensor, slots: Sequence[int],
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -445,27 +508,40 @@ class TierExecutor:
 
     def _read_pages(self, pool: torch.Tensor, slots: Sequence[int],
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        idx = torch.as_tensor(list(slots), dtype=torch.long)
-        if pool.device.type == "cpu" and self.real_host_tier:
-            # gather into pinned staging so the host->device copy is a
-            # true async DMA; the caching host allocator keeps the staging
-            # block alive until the copy on the current stream is done
-            staging = torch.empty((len(slots), *pool.shape[1:]),
-                                  dtype=pool.dtype, pin_memory=True)
-            torch.index_select(pool, 0, idx, out=staging)
+        st = self.streams
+        if not st.moves(pool):
+            # index_select allocates: the result never aliases the pool
+            idx = torch.as_tensor(list(slots), dtype=torch.long,
+                                  device=pool.device)
             if out is not None:
-                return out.copy_(staging, non_blocking=True)
-            return staging.to(self.device, non_blocking=True)
-        # index_select allocates: the result never aliases the pool
-        idx = idx.to(pool.device)
-        if out is not None:
-            return torch.index_select(pool, 0, idx, out=out)
-        return pool.index_select(0, idx)
+                return torch.index_select(pool, 0, idx, out=out)
+            return pool.index_select(0, idx)
+        if out is None:
+            out = torch.empty((len(slots), *pool.shape[1:]),
+                              dtype=pool.dtype, device=self.device)
+        # (a) the H2D into ``out`` waits for the compute stream's last use
+        # of it: a replay reading the staged pool buffer, or whatever the
+        # allocator last gave a fresh tensor's memory to
+        st.fork(st.h2d)
+        # (d) read after write: a page written back in one wave may be
+        # read in the next, so the H2D waits for every earlier D2H
+        if self._write_done is not None:
+            st.wait(st.h2d, self._write_done)
+        with st.on(st.h2d):
+            for i, s, n in _runs(slots):
+                st.copy_(out[i:i + n], pool[s:s + n])
+            self._read_done = st.record(st.h2d)
+        # (b) the compute stream's use of the pages waits for their H2D;
+        # the host does not
+        st.wait(st.current(), self._read_done)
+        return out
 
     def write_pages(self, pool: torch.Tensor, slots: Sequence[int],
                     pages: torch.Tensor) -> torch.Tensor:
         """Coalesced in-place write of ``pages[i] -> pool[slots[i]]``;
-        returns the pool.  Slots must be distinct."""
+        returns the pool.  Slots must be distinct.  On a pinned pool the
+        copy is read from ``pages`` later, on the D2H stream: do not
+        write ``pages`` again (the buffer passes fresh tensors)."""
         tier = self.tier_of(pool)
         self._meter(pool, self._page_bytes(pool) * len(slots))
         tr = self.trace
@@ -478,10 +554,26 @@ class TierExecutor:
 
     def _write_pages(self, pool: torch.Tensor, slots: Sequence[int],
                      pages: torch.Tensor) -> torch.Tensor:
-        # a device->host copy into pageable memory is synchronous, so the
-        # host-side scatter below never races the transfer
-        pages = self._to_tier(pool, pages)
-        idx = torch.as_tensor(list(slots), dtype=torch.long,
-                              device=pool.device)
-        pool.index_copy_(0, idx, pages)
+        st = self.streams
+        if not st.moves(pool):
+            pages = self._to_tier(pool, pages)
+            if len(slots) == 1:
+                pool[int(slots[0])].copy_(pages[0])
+                return pool
+            idx = torch.as_tensor(list(slots), dtype=torch.long,
+                                  device=pool.device)
+            pool.index_copy_(0, idx, pages)
+            return pool
+        pages = pages.to(device=self.device, dtype=pool.dtype)
+        # (c) the D2H waits for the compute stream that produced ``pages``;
+        # (e) write after read, a slot read and freed earlier and taken
+        # again here, follows: the compute stream waited for every
+        # earlier H2D at (b)
+        st.fork(st.d2h)
+        with st.on(st.d2h):
+            for i, s, n in _runs(slots):
+                st.copy_(pool[s:s + n], pages[i:i + n])
+            self._write_done = st.record(st.d2h)
+        # the compute stream may drop ``pages`` before the D2H has read it
+        st.keep(pages, st.d2h)
         return pool

@@ -42,6 +42,21 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"]).to(dt)
 
 
+def layer_norm_init(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5
+               ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
+
+
 # ------------------------------------------------------------- linear init
 def randn_init(gen: torch.Generator, shape, std: float,
                dtype) -> torch.Tensor:
@@ -160,3 +175,12 @@ def chunked_softmax_xent(logits_fn, x: torch.Tensor, labels: torch.Tensor,
                             labels[:, lo:lo + chunk, None].long())[..., 0]
         total = total + torch.sum(logz - gold)
     return total / (B * S)
+
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Boolean [.., Q, K] mask: k attends-able from q (causal, opt. SWA)."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > (q_pos[..., :, None] - window)
+    return m

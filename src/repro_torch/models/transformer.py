@@ -3,7 +3,9 @@ and decode (port of repro.models.transformer).
 
 Layer params are stacked on a leading [L] axis, as in the reference; where
 the reference scans over layers (``scan_layers``), the port runs a Python
-loop over per-layer views, so ``models/scan_utils.py`` has no counterpart.
+loop over per-layer views, which a CUDA graph captures
+(``models/scan_utils.scan_layers`` is that loop, for callers of the
+reference's name).
 Caches and pools are updated **in place**.  The full-sequence trunk
 (:func:`trunk_train`) is training's forward pass and the encoder-decoder's
 encoder; under ``flags.remat`` each layer's body is activation-checkpointed
@@ -42,10 +44,18 @@ def _layer_keys(cfg: ArchConfig) -> tuple:
 
 
 # ---------------------------------------------------------------- layer init
-def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig, n: int,
-                        cross: bool = False) -> Params:
-    """[L]-stacked layer params drawn from ``gen``; ``cross`` adds a
-    decoder layer's cross-attention and its norm."""
+def layer_init(gen: torch.Generator, cfg: ArchConfig,
+               cross: bool = False) -> Params:
+    """One layer's params drawn from ``gen``: the tree of
+    :func:`stacked_layers_init` without its leading [L] axis."""
+    return stacked_layers_init(gen, cfg, None, cross)
+
+
+def stacked_layers_init(gen: torch.Generator, cfg: ArchConfig,
+                        n: Optional[int], cross: bool = False) -> Params:
+    """[L]-stacked layer params drawn from ``gen`` (``n`` None: one
+    layer's, unstacked); ``cross`` adds a decoder layer's cross-attention
+    and its norm."""
     p: Params = {"norm1": rms_norm_init(cfg.d_model, gen.device, n),
                  "norm2": rms_norm_init(cfg.d_model, gen.device, n)}
     if cfg.block_type == RWKV6:

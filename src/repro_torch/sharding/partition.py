@@ -76,6 +76,13 @@ def batch_spec(mesh, batch: int, extra_dims: int = 1) -> Spec:
     return (None,) * (extra_dims + 1)
 
 
+def batch_sharding(mesh, batch: int, extra_dims: int = 1) -> list:
+    """The DTensor placements of :func:`batch_spec` on the ``DeviceMesh``
+    ``mesh``: what ``distribute_tensor`` takes for a [B, ...] input, as
+    the reference's ``NamedSharding`` of the same spec."""
+    return placements(batch_spec(mesh, batch, extra_dims), mesh)
+
+
 def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     """One device's local shape of a tensor of ``shape`` under ``spec``
     (every named axis must divide its dim)."""

@@ -146,6 +146,37 @@ def test_sharding_dry_run_and_roofline_load_no_jax_and_no_group():
     assert out.stdout.strip() == "ok"
 
 
+def test_new_modules_the_example_and_chip_smoke_load_no_jax():
+    """The reference's last names in the port (``scan_utils``,
+    ``batch_sharding``, the layer helpers, ``move_page``), the training
+    example and ``chip_smoke.py``, each loaded as a module in a fresh
+    interpreter: ``"jax" not in sys.modules``, and nothing of
+    ``repro``."""
+    root = SRC.parent
+    code = (
+        "import importlib.util, sys\n"
+        "from repro_torch.models.scan_utils import scan_layers\n"
+        "from repro_torch.models.layers import (causal_mask, layer_norm,\n"
+        "                                       layer_norm_init)\n"
+        "from repro_torch.models.transformer import layer_init\n"
+        "from repro_torch.sharding import batch_sharding\n"
+        "from repro_torch.core.offload import TierExecutor\n"
+        "assert TierExecutor.move_page\n"
+        "for name in ('examples/train_offload_torch.py', 'chip_smoke.py'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name.split('/')[-1][:-3], name)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert 'jax' not in sys.modules\n"
+        "assert not any(n == 'repro' or n.startswith(('repro.', 'jax'))\n"
+        "               for n in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_static_scan_finds_no_jax_or_repro_import():
     """Top-level and function-level imports alike."""
     pat = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
@@ -153,6 +184,12 @@ def test_static_scan_finds_no_jax_or_repro_import():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30
     assert [p.name for p in files if pat.search(p.read_text())] == []
+    # the examples' twins and chip_smoke.py, which run without jax too
+    root = SRC.parent
+    others = sorted(root.glob("examples/*_torch.py")) + \
+        [root / "chip_smoke.py"]
+    assert len(others) >= 5
+    assert [p.name for p in others if pat.search(p.read_text())] == []
     assert pat.search("    from repro.core import api\n")
     assert pat.search("import jax.numpy as jnp\n")
     assert not pat.search("from repro_torch.core import api\n")

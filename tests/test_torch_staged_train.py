@@ -1,37 +1,28 @@
 """The staged train step (``train.staged.StagedTrainStep`` over
-``train.loop.make_train_step_``) against the eager step and the reference.
+``train.loop.make_train_step_``) against the eager step.
 
 On the CPU the launcher's staged path runs the static step without a
 graph: the same static buffers, the same in-place updates.  Tolerances,
 and why:
-  * staged against ``staged=False``: bit for bit (the in-place AdamW and
-    error feedback compute the functional expressions, then copy);
   * ``adamw_update_`` and ``ef_compress_tree_`` against their functional
-    twins: bit for bit;
-  * against the reference's launcher: losses within 1e-5 relative, and
-    params as ``tests/test_torch_optim.py`` holds the launcher (every
-    element within Adam's ``2 * lr`` a step, at most one in a thousand
-    past 1e-4: with compression a last-bit difference in a gradient can
-    move one int8 value by a quantum).
-The reduced configs are float32; the reference runs in modelling mode
-(``backend_memory_kinds`` patched to ``("device",)``).
+    twins: bit for bit (the in-place AdamW and error feedback compute the
+    functional expressions, then copy);
+  * the captured step on the card against the eager launcher: losses
+    within 1e-5 relative.
+The launcher's matrix over five reduced configs (staged against eager
+and the reference) is in ``tests/train_launcher_cases.py``, run one
+config a file by ``tests/test_torch_train_launcher_*.py``.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten
 
-import repro.launch.train as jtrain
-from repro.configs.base import get_config as jget_config
-from repro.models import build_model as jbuild_model
-from repro.models.flags import Flags as JFlags
 from repro_torch.configs.base import get_config
 from repro_torch.core import offload
 from repro_torch.data.pipeline import DataConfig, make_dataset
-from repro_torch.interop import params_from_numpy
 from repro_torch.launch import train
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
@@ -46,38 +37,7 @@ ARCHS = ("qwen2-1.5b", "rwkv6-7b", "dbrx-132b", "hymba-1.5b",
          "seamless-m4t-large-v2")
 ARCH = "qwen2-1.5b"
 LOSS_TOL = 1e-5
-PARAM_TOL = 1e-4
-STEPS, LR, SEQ = 3, 1e-3, 32
-
-
-def _np(tree):
-    """A tree of either package as a list of float32-or-int numpy arrays
-    in sorted-key order."""
-    out = []
-    for leaf in (tree_leaves(tree) if isinstance(tree, dict) else tree):
-        if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach()
-            out.append((leaf.float() if leaf.dtype == torch.bfloat16
-                        else leaf).numpy())
-        else:
-            a = np.asarray(leaf)
-            out.append(a.astype(np.float32) if a.dtype.name == "bfloat16"
-                       else a)
-    return out
-
-
-def _jleaves(tree):
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in _jleaves(tree[k])]
-    return [tree]
-
-
-def _ref_params(arch):
-    jmodel = jbuild_model(jget_config(arch).reduced(),
-                          JFlags(remat=False, attn_chunk=SEQ))
-    jparams = jmodel.init(jax.random.key(0))
-    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
-                             device="cpu")
+LR, SEQ = 1e-3, 32
 
 
 def _clone(tree):
@@ -91,44 +51,7 @@ def _assert_bitwise(a, b):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-@pytest.fixture
-def modelling_reference(monkeypatch):
-    monkeypatch.setattr(jtrain, "backend_memory_kinds", lambda: ("device",))
-    monkeypatch.setattr(jtrain, "supports_in_jit_offload", lambda: False)
-
-
 # ------------------------------------------------------------ launcher
-@pytest.mark.parametrize("accum,compress", [(1, False), (1, True),
-                                            (2, False), (2, True)])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_staged_launcher_matches_eager_and_reference(modelling_reference,
-                                                     arch, accum, compress):
-    """``run(staged=True)`` (the static step, updating in place) gives the
-    eager launcher's losses, params and state bit for bit, and the
-    reference launcher's losses within LOSS_TOL, with the optimizer state
-    offloaded (modelling mode on the CPU)."""
-    kw = dict(steps=STEPS, global_batch=4, seq_len=SEQ, verbose=False,
-              offload_opt=True, compress_grads=compress, grad_accum=accum,
-              lr=LR)
-    ref = jtrain.run(arch, **kw)
-    init = _ref_params(arch)
-    staged = train.run(arch, device="cpu", init_params=_clone(init), **kw)
-    eager = train.run(arch, device="cpu", init_params=init, staged=False,
-                      **kw)
-    assert staged["losses"] == eager["losses"]
-    _assert_bitwise(staged["params"], eager["params"])
-    _assert_bitwise(staged["opt_state"], eager["opt_state"])
-    assert [r["mode"] for r in staged["step_log"]] == ["eager"] * STEPS
-    assert staged["staged"]["eager_steps"] == STEPS
-    assert staged["staged"]["captures"] == 0
-    np.testing.assert_allclose(staged["losses"], ref["losses"],
-                               rtol=LOSS_TOL)
-    got, want = _np(staged["params"]), _np(_jleaves(ref["params"]))
-    d = np.concatenate([np.abs(g - w).ravel() for g, w in zip(got, want)])
-    assert d.max() <= 2 * LR * STEPS
-    assert np.sum(d > PARAM_TOL) <= 1e-3 * d.size
-
-
 def test_staged_launcher_updates_the_params_it_is_given():
     """The staged run's params are the tensors it was given, updated in
     place; the eager run's are new."""

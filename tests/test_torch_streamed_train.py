@@ -3,38 +3,27 @@ port's counterpart of the reference's in-jit offload mode, which pages a
 parked optimizer state leaf by leaf on a device's copy streams beside the
 forward and backward passes and the update.
 
-On the CPU the stream calls go to a recording stand-in
-(``_Recorder``): it keeps a vector clock per stream, as CUDA orders work
-(program order on a stream; an event carries everything its stream had
-issued; a wait merges it in), so one run of the step yields the
-happens-before relation of every copy and every compute operation, and
-the tests read the schedule's guarantees off it.  The recorder pages
-every leaf (``moves``), into fresh CPU tensors and back, so the values
-test runs the copies themselves.  Tolerances:
-  * streamed against the serial schedule: bit for bit (the same
-    expressions, each leaf independent, the global norm summed in the
-    same order);
-  * against the reference's launcher: losses within 1e-5 relative and
-    params as ``tests/test_torch_staged_train.py`` holds the serial step
-    (every element within Adam's ``2 * lr`` a step, at most one in a
-    thousand past 1e-4).
+On the CPU the stream calls go to a recording stand-in (``Recorder`` in
+``tests/stream_recorder.py``): it keeps a vector clock per stream, as
+CUDA orders work (program order on a stream; an event carries everything
+its stream had issued; a wait merges it in), so one run of the step
+yields the happens-before relation of every copy and every compute
+operation, and the tests read the schedule's guarantees off it.  The
+recorder pages every leaf (``moves``), into fresh CPU tensors and back,
+so the values test runs the copies themselves.  Streamed against the
+serial schedule: bit for bit (the same expressions, each leaf
+independent, the global norm summed in the same order).  The launcher's
+matrix over five reduced configs (streamed against serial and the
+reference) is in ``tests/train_launcher_cases.py``, run one config a
+file by ``tests/test_torch_train_launcher_*.py``.
 """
 
-import contextlib
-
-import jax
-import numpy as np
 import pytest
 import torch
 
-import repro.launch.train as jtrain
-from repro.configs.base import get_config as jget_config
-from repro.models import build_model as jbuild_model
-from repro.models.flags import Flags as JFlags
 from repro_torch.configs.base import get_config
 from repro_torch.core import offload
 from repro_torch.data.pipeline import DataConfig, make_dataset
-from repro_torch.interop import params_from_numpy
 from repro_torch.launch import train
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
@@ -44,61 +33,11 @@ from repro_torch.train import loop
 from repro_torch.train.loop import make_train_step_, opt_state_init
 from repro_torch.train.staged import OUTPUTS, StagedTrainStep
 from repro_torch.train.trace import busy_split, kind_of
+from stream_recorder import Recorder as _Recorder
+from stream_recorder import before as _before
 
-ARCHS = ("qwen2-1.5b", "rwkv6-7b", "dbrx-132b", "hymba-1.5b",
-         "seamless-m4t-large-v2")
 ARCH = "qwen2-1.5b"
-LOSS_TOL = 1e-5
-PARAM_TOL = 1e-4
-STEPS, LR, SEQ = 3, 1e-3, 32
-STREAMS = ("compute", "h2d", "d2h")
-
-
-class _Recorder(offload.HostStreams):
-    """Host streams that record the schedule: every copy and every
-    compute operation the tests hook in (``op``) is logged with its
-    stream and a snapshot of that stream's vector clock; events carry
-    clocks and waits merge them.  Every leaf is paged."""
-
-    def __init__(self, device="cpu"):
-        super().__init__(device)
-        self.clock = {s: dict.fromkeys(STREAMS, 0) for s in STREAMS}
-        self.stream = "compute"
-        self.log = []
-
-    @contextlib.contextmanager
-    def on(self, stream):
-        prev, self.stream = self.stream, stream
-        try:
-            yield
-        finally:
-            self.stream = prev
-
-    def record(self, stream):
-        return dict(self.clock[stream])
-
-    def wait(self, stream, event):
-        for s, n in event.items():
-            self.clock[stream][s] = max(self.clock[stream][s], n)
-
-    def op(self, kind, **what):
-        s = self.stream
-        self.clock[s][s] += 1
-        self.log.append(dict(kind=kind, stream=s, clock=dict(self.clock[s]),
-                             **what))
-        return self.log[-1]
-
-    def copy_(self, dst, src):
-        self.op("copy", dst=dst, src=src)
-        super().copy_(dst, src)
-
-    def moves(self, leaf):
-        return True
-
-
-def _before(a, b) -> bool:
-    """``a`` happens before ``b`` on the device."""
-    return a["clock"][a["stream"]] <= b["clock"][a["stream"]] and a is not b
+LR, SEQ = 1e-3, 32
 
 
 def _instrument(monkeypatch, rec):
@@ -257,69 +196,6 @@ def test_streamed_step_equals_serial_bitwise(compress):
     assert [l.data_ptr() for l in tree_leaves(params)
             + tree_leaves(state)] == ptrs
     assert int(state["count"]) == 3
-
-
-def _np(tree):
-    out = []
-    for leaf in (tree_leaves(tree) if isinstance(tree, dict) else tree):
-        if isinstance(leaf, torch.Tensor):
-            out.append(leaf.detach().float().numpy())
-        else:
-            out.append(np.asarray(leaf).astype(np.float32))
-    return out
-
-
-def _jleaves(tree):
-    if isinstance(tree, dict):
-        return [l for k in sorted(tree) for l in _jleaves(tree[k])]
-    return [tree]
-
-
-@pytest.fixture
-def modelling_reference(monkeypatch):
-    monkeypatch.setattr(jtrain, "backend_memory_kinds", lambda: ("device",))
-    monkeypatch.setattr(jtrain, "supports_in_jit_offload", lambda: False)
-
-
-@pytest.mark.parametrize("accum,compress", [(1, False), (1, True),
-                                            (2, False), (2, True)])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_streamed_launcher_matches_serial_and_reference(
-        modelling_reference, monkeypatch, arch, accum, compress):
-    """``run(streamed=True)``, the recorder paging every leaf, gives the
-    serial schedule's losses, params and state bit for bit, and the
-    reference launcher's losses within LOSS_TOL, offload on."""
-    kw = dict(steps=STEPS, global_batch=4, seq_len=SEQ, verbose=False,
-              offload_opt=True, compress_grads=compress, grad_accum=accum,
-              lr=LR)
-    ref = jtrain.run(arch, **kw)
-    jparams = jbuild_model(jget_config(arch).reduced(), JFlags(
-        remat=False, attn_chunk=SEQ)).init(jax.random.key(0))
-    init = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
-                             device="cpu")
-    rec = _Recorder()
-    monkeypatch.setattr(train, "copy_streams", lambda device: rec)
-    streamed = train.run(arch, device="cpu", streamed=True,
-                         init_params=tree_map(torch.clone, init), **kw)
-    serial = train.run(arch, device="cpu", streamed=False,
-                       init_params=init, **kw)
-    assert streamed["streamed"] and not serial["streamed"]
-    n = len(tree_leaves(streamed["opt_state"]))
-    copies = [o for o in rec.log if o["kind"] == "copy"]
-    assert len(copies) == 2 * n * STEPS
-    assert streamed["losses"] == serial["losses"]
-    for a, b in ((streamed["params"], serial["params"]),
-                 (streamed["opt_state"], serial["opt_state"])):
-        for x, y in zip(tree_leaves(a), tree_leaves(b)):
-            assert x.dtype == y.dtype and torch.equal(x, y)
-    assert [r["mode"] for r in streamed["step_log"]] == ["eager"] * STEPS
-    assert all(set(r["times"]) == {"step"} for r in streamed["step_log"])
-    np.testing.assert_allclose(streamed["losses"], ref["losses"],
-                               rtol=LOSS_TOL)
-    got, want = _np(streamed["params"]), _np(_jleaves(ref["params"]))
-    d = np.concatenate([np.abs(g - w).ravel() for g, w in zip(got, want)])
-    assert d.max() <= 2 * LR * STEPS
-    assert np.sum(d > PARAM_TOL) <= 1e-3 * d.size
 
 
 def test_launcher_picks_the_schedule():
