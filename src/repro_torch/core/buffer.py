@@ -152,6 +152,9 @@ class LinkedBuffer:
         self.prefetch_wasted = 0
         self.prefetch_deferred = 0
         self.prefetch_hidden_s = 0.0
+        #: passes the batched accesses (read_many, write_many) took, one
+        #: per capacity-sized wave of their pages
+        self.waves = 0
         self.degraded = False
         self._closed = False
         host.fm.on_failover(self._on_failover)
@@ -1008,6 +1011,7 @@ class LinkedBuffer:
             return self._zeros((0, *self.page_shape)) if out is None else out
         order = list(dict.fromkeys(pages))
         if len(order) == 1:
+            self.waves += 1
             # a 1-page "burst" IS the scalar path (same bytes, same
             # single-digit arbiter calls) minus the gather machinery;
             # data[None] over torch.stack keeps the decode path at true
@@ -1020,6 +1024,7 @@ class LinkedBuffer:
                 return data[None]
             return torch.stack([data] * len(pages))
         if self._single_wave_fits(order):
+            self.waves += 1
             slotmap = self._fault_in_many(pages)
             return self.executor.read_pages(
                 self._onboard_pool, [slotmap[p] for p in pages], out=out)
@@ -1027,6 +1032,7 @@ class LinkedBuffer:
         # capturing each wave's data before the next wave may evict it
         datas: Dict[int, torch.Tensor] = {}
         for wave, occ in self._iter_waves(pages, order):
+            self.waves += 1
             slotmap = self._fault_in_many(occ)
             arr = self.executor.read_pages(
                 self._onboard_pool, [slotmap[p] for p in wave])
@@ -1049,10 +1055,12 @@ class LinkedBuffer:
         order = list(dict.fromkeys(pages))
         last = {p: i for i, p in enumerate(pages)}
         if len(order) == 1:
+            self.waves += 1
             self.write(order[0], data[last[order[0]]])
             self._record_dup_hits(order[0], len(pages) - 1)
             return
         for wave, occ in self._iter_waves(pages, order):
+            self.waves += 1
             slotmap = self._fault_in_many(occ)
             self._onboard_pool = self.executor.write_pages(
                 self._onboard_pool, [slotmap[p] for p in wave],

@@ -509,6 +509,7 @@ class FabricManager:
             # sums over a trace equal the fabric's wait counters
             dom = self.domain_of(eid)
             extra = {"domain": dom} if dom is not None else {}
+            extra["clock"] = "modeled"
             tr.add("link.xfer", tr.now(), grant.delay_s, op=op,
                    tenant=info.tenant, expander=eid, nbytes=nbytes,
                    device=device_id, **extra)

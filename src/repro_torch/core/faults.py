@@ -384,6 +384,7 @@ class FaultInjector:
         if tr.enabled:
             tr.add("fault.transient", tr.now(), extra, op=op,
                    expander=expander_id, nbytes=nbytes, device=device_id,
+                   clock="modeled",
                    retries=st.retries, recovered=recovered)
         return extra, retry_bytes
 

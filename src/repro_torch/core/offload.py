@@ -188,6 +188,13 @@ class CopyStreams:
         event.record(stream)
         return event
 
+    def stamp(self, stream):
+        """A timing event recorded on ``stream``: two of them bracket a
+        burst, and their ``elapsed_time`` is its seconds on the link."""
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        return event
+
     def wait(self, stream, event) -> None:
         stream.wait_event(event)
 
@@ -237,6 +244,9 @@ class HostStreams(CopyStreams):
         return contextlib.nullcontext()
 
     def record(self, stream):
+        return None
+
+    def stamp(self, stream):
         return None
 
     def wait(self, stream, event) -> None:
@@ -478,10 +488,12 @@ class TierExecutor:
     def settle(self) -> None:
         """Return once every burst issued so far has landed: (f) before a
         pool is dropped, and (g) before host code reads a pinned pool's
-        bytes."""
+        bytes.  The landed bursts' link seconds go into their spans."""
         for event in (self._read_done, self._write_done):
             if event is not None:
                 self.streams.synchronize(event)
+        if self.trace.enabled:
+            self.trace.resolve_deferred(wait=True)
 
     # ---- coalesced multi-page transfers (the batched data path) ----
     # One copy per run of consecutive slots instead of N slice copies (on
@@ -489,8 +501,10 @@ class TierExecutor:
     # the meter hook (when bound) sees ONE charge for the burst's bytes.
     # On a pinned pool the copies are queued on the copy streams and the
     # host does not wait, so the ``exec.read_pages`` / ``exec.write_pages``
-    # spans time the issue of a burst, not its transfer; chip_smoke.py's
-    # burst breakdown synchronises to time the transfer.
+    # spans time the issue of a burst, not its transfer.  With tracing on,
+    # two timing events on the copy stream bracket the burst's copies, and
+    # the span gains ``link_s`` (seconds on the link) and ``gb_per_s``
+    # once they have passed (``_time_burst``): no host sync on this path.
 
     def read_pages(self, pool: torch.Tensor, slots: Sequence[int],
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -500,14 +514,39 @@ class TierExecutor:
         self._meter(pool, self._page_bytes(pool) * len(slots))
         tr = self.trace
         if tr.enabled:
+            burst: list = []
             with tr.span("exec.read_pages", op="demand",
                          nbytes=self._page_bytes(pool) * len(slots),
-                         pages=len(slots), tier=self.tier_of(pool)):
-                return self._read_pages(pool, slots, out)
+                         pages=len(slots), tier=self.tier_of(pool)) as sid:
+                out = self._read_pages(pool, slots, out, burst)
+            self._time_burst(sid, burst)
+            return out
         return self._read_pages(pool, slots, out)
 
+    def _time_burst(self, sid: int, burst: list) -> None:
+        """Have span ``sid`` (just closed) take the link seconds between
+        the two timing events in ``burst`` once they have passed; nothing
+        on the CPU, where no copy runs on a stream."""
+        span = self.trace.closed(sid)
+        if span is None or len(burst) != 2 or burst[0] is None:
+            return
+        start, end = burst
+
+        def resolve(wait: bool) -> bool:
+            if not end.query():
+                if not wait:
+                    return False
+                end.synchronize()
+            link_s = start.elapsed_time(end) * 1e-3
+            span.args["link_s"] = link_s
+            if link_s > 0:
+                span.args["gb_per_s"] = span.nbytes / link_s * 1e-9
+            return True
+        self.trace.defer(resolve)
+
     def _read_pages(self, pool: torch.Tensor, slots: Sequence[int],
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    out: Optional[torch.Tensor] = None,
+                    burst: Optional[list] = None) -> torch.Tensor:
         st = self.streams
         if not st.moves(pool):
             # index_select allocates: the result never aliases the pool
@@ -528,8 +567,12 @@ class TierExecutor:
         if self._write_done is not None:
             st.wait(st.h2d, self._write_done)
         with st.on(st.h2d):
+            if burst is not None:
+                burst.append(st.stamp(st.h2d))
             for i, s, n in _runs(slots):
                 st.copy_(out[i:i + n], pool[s:s + n])
+            if burst is not None:
+                burst.append(st.stamp(st.h2d))
             self._read_done = st.record(st.h2d)
         # (b) the compute stream's use of the pages waits for their H2D;
         # the host does not
@@ -546,14 +589,18 @@ class TierExecutor:
         self._meter(pool, self._page_bytes(pool) * len(slots))
         tr = self.trace
         if tr.enabled:
+            burst: list = []
             with tr.span("exec.write_pages", op="demand",
                          nbytes=self._page_bytes(pool) * len(slots),
-                         pages=len(slots), tier=tier):
-                return self._write_pages(pool, slots, pages)
+                         pages=len(slots), tier=tier) as sid:
+                pool = self._write_pages(pool, slots, pages, burst)
+            self._time_burst(sid, burst)
+            return pool
         return self._write_pages(pool, slots, pages)
 
     def _write_pages(self, pool: torch.Tensor, slots: Sequence[int],
-                     pages: torch.Tensor) -> torch.Tensor:
+                     pages: torch.Tensor,
+                     burst: Optional[list] = None) -> torch.Tensor:
         st = self.streams
         if not st.moves(pool):
             pages = self._to_tier(pool, pages)
@@ -571,8 +618,12 @@ class TierExecutor:
         # earlier H2D at (b)
         st.fork(st.d2h)
         with st.on(st.d2h):
+            if burst is not None:
+                burst.append(st.stamp(st.d2h))
             for i, s, n in _runs(slots):
                 st.copy_(pool[s:s + n], pages[i:i + n])
+            if burst is not None:
+                burst.append(st.stamp(st.d2h))
             self._write_done = st.record(st.d2h)
         # the compute stream may drop ``pages`` before the D2H has read it
         st.keep(pages, st.d2h)

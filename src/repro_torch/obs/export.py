@@ -16,6 +16,10 @@ layout:
     link transfers) also lands here, giving the blast-radius view.
   * pid ``0`` ("engine") — spans with none of the tags (serve rounds,
     migration rounds, ...).
+  * pid ``4`` ("modeled clock") — one tid per expander id; a span whose
+    ``dur`` is modeled virtual time (``args["clock"] == "modeled"``:
+    ``link.xfer``, ``fault.transient``) lands here and on no other
+    track, since its interval is not on the wall clock the others share.
 
 Every event's ``args`` carries the full structured span (op class,
 nbytes, tenant, expander, span id, parent, dur in seconds, plus any
@@ -35,6 +39,7 @@ _PID_ENGINE = 0
 _PID_LINKS = 1
 _PID_TENANTS = 2
 _PID_DOMAINS = 3
+_PID_MODELED = 4
 
 
 def _span_args(s: Span) -> Dict[str, Any]:
@@ -56,6 +61,7 @@ def chrome_trace_events(spans: Iterable[Span]) -> List[Dict[str, Any]]:
     tenants: Dict[str, int] = {}
     domains: Dict[str, int] = {}
     expanders: set = set()
+    modeled: set = set()
 
     def emit(s: Span, pid: int, tid: int) -> None:
         events.append({
@@ -66,6 +72,11 @@ def chrome_trace_events(spans: Iterable[Span]) -> List[Dict[str, Any]]:
 
     for s in spans:
         placed = False
+        if s.args.get("clock") == "modeled":
+            tid = -1 if s.expander is None else int(s.expander)
+            modeled.add(tid)
+            emit(s, _PID_MODELED, tid)
+            continue
         if s.expander is not None:
             expanders.add(s.expander)
             emit(s, _PID_LINKS, int(s.expander))
@@ -91,11 +102,18 @@ def chrome_trace_events(spans: Iterable[Span]) -> List[Dict[str, Any]]:
          "args": {"name": "tenants"}},
         {"name": "process_name", "ph": "M", "pid": _PID_DOMAINS, "tid": 0,
          "args": {"name": "failure domains"}},
+        {"name": "process_name", "ph": "M", "pid": _PID_MODELED, "tid": 0,
+         "args": {"name": "modeled clock"}},
     ]
     for eid in sorted(expanders):
         meta.append({"name": "thread_name", "ph": "M", "pid": _PID_LINKS,
                      "tid": int(eid),
                      "args": {"name": f"expander {eid} link"}})
+    for tid in sorted(modeled):
+        meta.append({"name": "thread_name", "ph": "M", "pid": _PID_MODELED,
+                     "tid": tid,
+                     "args": {"name": "no expander" if tid < 0 else
+                              f"expander {tid} link, modeled"}})
     for tenant, tid in sorted(tenants.items(), key=lambda kv: kv[1]):
         meta.append({"name": "thread_name", "ph": "M",
                      "pid": _PID_TENANTS, "tid": tid,

@@ -24,15 +24,36 @@ seconds for compute-side spans, **modeled virtual seconds** for link
 transfer spans (the arbiter's ``TransferGrant.delay_s``), which is what
 makes span sums reconcile exactly with the fabric byte/wait counters.
 Exporters record which convention a span used via its name/args.
+
+The port adds what puts its spans on a profiler's timeline:
+
+* every span opened with :meth:`SpanTracer.span` is also a
+  ``torch.profiler.record_function`` range of the same name, entered only
+  while tracing is on and a profiler records, so a ``torch.profiler``
+  trace holds each one on the profiler's clock beside the card's
+  kernels; a span recorded with
+  :meth:`SpanTracer.add` never is one, and one whose ``dur`` is modeled
+  says so: ``args["clock"] == "modeled"`` (``link.xfer``,
+  ``fault.transient``), which the Chrome exporter puts on a track of its
+  own;
+* :attr:`SpanTracer.epoch`, the ``time.monotonic`` instant every ``t0``
+  counts from, so a reader puts spans on the host clock;
+* fields filled in after a span closed (:meth:`SpanTracer.defer`): a
+  burst's link seconds, read from its copy stream's events once they have
+  passed, without a host sync on the path that recorded it.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
+from collections.abc import Callable
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
+
+import torch
 
 #: shared cap for the span ring and for ``Metrics._events``
 DEFAULT_RING_CAPACITY = 65536
@@ -67,6 +88,9 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+#: the no-op a call site opens when tracing is off, so that its guard is
+#: one attribute check: ``with tr.span(...) if tr.enabled else NULL_SPAN:``
+NULL_SPAN = _NULL_SPAN
 
 
 class SpanTracer:
@@ -92,11 +116,21 @@ class SpanTracer:
         self._next_id = 1
         self._stack: List[int] = []  # open span ids (for parenting)
         self._epoch = time.monotonic()
+        #: the span :meth:`add` recorded last (:meth:`closed`)
+        self.last: Optional[Span] = None
+        #: resolvers of fields filled in later (:meth:`defer`), oldest first
+        self._deferred: deque = deque()
 
     # -- clock -----------------------------------------------------
     def now(self) -> float:
         """Wall seconds since this tracer's epoch."""
         return time.monotonic() - self._epoch
+
+    @property
+    def epoch(self) -> float:
+        """The ``time.monotonic`` instant ``t0`` counts from: a span
+        began at ``epoch + t0`` on the host clock."""
+        return self._epoch
 
     # -- recording -------------------------------------------------
     def add(self, name: str, t0: float, dur: float, *, op: str = "",
@@ -120,6 +154,7 @@ class SpanTracer:
             else:
                 self._count += 1
             self._buf[self._head] = s
+            self.last = s
             self._head = (self._head + 1) % self.capacity
             return span_id
 
@@ -136,11 +171,19 @@ class SpanTracer:
             self._next_id += 1
             parent = self._stack[-1] if self._stack else None
             self._stack.append(sid)
+        # the same range on the profiler's clock while a profiler records
+        # (entering one costs about twice the span's own bookkeeping)
+        rng = (torch.profiler.record_function(name)
+               if torch._C._autograd._profiler_enabled() else None)
+        if rng is not None:
+            rng.__enter__()
         t0 = self.now()
         try:
             yield sid
         finally:
             dur = self.now() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             with self._lock:
                 if self._stack and self._stack[-1] == sid:
                     self._stack.pop()
@@ -159,9 +202,41 @@ class SpanTracer:
             return _NULL_SPAN
         return self._span_cm(name, kw)
 
+    def closed(self, span_id: int) -> Optional[Span]:
+        """Span ``span_id`` if it is the one recorded last (a ``span``
+        block that just closed), for its caller to add to its ``args``
+        what it learned inside the block; else None."""
+        s = self.last
+        return s if s is not None and s.span_id == span_id else None
+
+    def defer(self, resolve: Callable[[bool], bool]) -> None:
+        """Fill fields of a recorded span later.  ``resolve(wait)`` sets
+        them in the span's ``args`` and returns True; with ``wait`` False
+        it may instead return False when they cannot be read yet (a copy
+        still on its stream), and is tried again later.  The pending are
+        tried, oldest first and without waiting, at every ``defer``, and
+        all run to the end by ``resolve_deferred(wait=True)`` and by
+        :meth:`spans`.  Past ``capacity`` pending, the oldest is dropped
+        and its span keeps its fields unset.  No-op when disabled."""
+        if not self.enabled:
+            return
+        self._deferred.append(resolve)
+        self.resolve_deferred(wait=False)
+        while len(self._deferred) > self.capacity:
+            self._deferred.popleft()
+
+    def resolve_deferred(self, wait: bool = True) -> None:
+        """Run the pending resolvers (:meth:`defer`) oldest first; without
+        ``wait``, stop at the first that cannot be resolved yet."""
+        while self._deferred:
+            if not self._deferred[0](wait):
+                return
+            self._deferred.popleft()
+
     # -- reading ---------------------------------------------------
     def spans(self) -> List[Span]:
         """Live spans, oldest first (post-wrap order preserved)."""
+        self.resolve_deferred(wait=True)
         with self._lock:
             if self._count < self.capacity:
                 out = [s for s in self._buf[:self._count]]
@@ -180,6 +255,8 @@ class SpanTracer:
             self.dropped = 0
             self._stack.clear()
             self._epoch = time.monotonic()
+            self.last = None
+            self._deferred.clear()
 
     def snapshot(self) -> Dict[str, Any]:
         return {"enabled": self.enabled, "capacity": self.capacity,

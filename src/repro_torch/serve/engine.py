@@ -48,7 +48,7 @@ from repro_torch.core.client import LMBSystem
 from repro_torch.core.pool import OutOfMemory
 from repro_torch.devices import resolve_device
 from repro_torch.models.zoo import Model
-from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, SpanTracer
+from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, NULL_SPAN, SpanTracer
 from repro_torch.qos.slo import AdmissionController, Decision
 from repro_torch.serve.kv_cache import PagedKVStore
 from repro_torch.serve.staged import StagedPrefill, StagedSlots, StagedStep
@@ -279,6 +279,9 @@ class ServeEngine:
                 model.decode_step,
                 lambda: model.init_cache(1, ecfg.max_seq_len),
                 device=self.device)
+        for fn in (self.staged_prefill, self.staged):
+            if fn is not None:
+                fn.trace = self.trace
         self.paged_rounds = 0
 
     # -------------------------------------------------------------- intake
@@ -320,6 +323,12 @@ class ServeEngine:
             params, {"tokens": tokens.to(self.device)}, cache)
 
     def _prefill(self, req: Request) -> None:
+        tr = self.trace
+        with (tr.span("serve.prefill", op="serve", req=req.req_id,
+                      tokens=len(req.prompt)) if tr.enabled else NULL_SPAN):
+            self._prefill_request(req)
+
+    def _prefill_request(self, req: Request) -> None:
         # prefill runs at prompt length; the dense cache covers max_seq_len.
         # A staged prefill's cache is the one static cache: its pages are
         # copied into the KV store here, and the whole cache into the
@@ -336,7 +345,10 @@ class ServeEngine:
         # everything back from the pool, so holding the dense cache per
         # request would defeat the capacity story
         req._cache = None if self._use_paged else cache
-        nxt = int(torch.argmax(logits[0]))    # the one host sync
+        tr = self.trace
+        with (tr.span("serve.readback", op="serve", req=req.req_id)
+              if tr.enabled else NULL_SPAN):
+            nxt = int(torch.argmax(logits[0]))    # the one host sync
         req.out_tokens.append(nxt)
         if req.first_token_at is None:
             req.first_token_at = self.clock()
@@ -405,6 +417,12 @@ class ServeEngine:
             self.waiting = deque(keep)
 
     def _admit(self) -> None:
+        tr = self.trace
+        with (tr.span("serve.admit", op="serve", waiting=len(self.waiting))
+              if tr.enabled else NULL_SPAN):
+            self._admit_waiting()
+
+    def _admit_waiting(self) -> None:
         self._expire_waiting()
         considered = 0
         limit = len(self.waiting)   # each waiter gets one decision per round
@@ -494,8 +512,14 @@ class ServeEngine:
         phased order (admit -> prefetch -> decode, never draining)
         remains as the reference mode.  Token streams are byte-identical
         between the two.  When tracing is on, the round runs under a
-        ``serve.round`` span whose children carry per-sequence TTFT and
-        inter-token events."""
+        ``serve.round`` span whose children are its phases:
+        ``serve.admit`` (each ``serve.prefill``, its ``staged.*`` call,
+        its KV pages' spans and ``serve.readback``, the host's wait for
+        the first token), ``serve.decode`` (``batch``; on the paged path
+        ``pages`` and ``pool``, with ``kv.decode_view``, the step's
+        ``staged.*`` call, ``serve.readback`` and ``kv.commit_decode``)
+        and, pipelined, ``serve.tail`` (the intake half); the TTFT,
+        inter-token and cancel events carry the request's ``req``."""
         impl = (self._step_pipelined if self.ecfg.pipeline
                 else self._step_phased)
         tr = self.trace
@@ -529,7 +553,10 @@ class ServeEngine:
         request waits an extra round versus the phased order."""
         self._admit()                      # catch-up: post-tail arrivals
         finished, round_dt = self._decode_round()
-        self._round_tail(round_dt)
+        tr = self.trace
+        with (tr.span("serve.tail", op="serve") if tr.enabled
+              else NULL_SPAN):
+            self._round_tail(round_dt)
         return finished
 
     def _round_tail(self, round_dt: float) -> None:
@@ -561,6 +588,13 @@ class ServeEngine:
         fallback."""
         if self._use_paged:
             return self._decode_round_paged()
+        tr = self.trace
+        with (tr.span("serve.decode", op="serve", batch=len(self.active))
+              if tr.enabled else NULL_SPAN):
+            return self._decode_round_dense()
+
+    def _decode_round_dense(self) -> tuple:
+        """The per-request dense-slot round (:meth:`_decode_round`)."""
         round_t0 = time.monotonic()
         finished = 0
         for slot, req in list(self.active.items()):
@@ -580,7 +614,10 @@ class ServeEngine:
                 logits, req._cache = self._decode_fn(self.params,
                                                      req._cache, tok)
                 cache = req._cache
-            nxt = int(torch.argmax(logits[0]))
+            tr = self.trace
+            with (tr.span("serve.readback", op="serve", req=req.req_id)
+                  if tr.enabled else NULL_SPAN):
+                nxt = int(torch.argmax(logits[0]))
             req.out_tokens.append(nxt)
             now = self.clock()
             if req.last_token_at is not None:
@@ -657,35 +694,18 @@ class ServeEngine:
                 continue
             live.append((slot, req))
         if live:
-            try:
-                view = self.kv.decode_view(
-                    [r.seq_id for _, r in live], self._max_pages,
-                    into=self.staged.rows if self.staged else None)
-                toks = torch.tensor([[r.out_tokens[-1]] for _, r in live],
-                                    dtype=torch.int32, device=self.device)
-                logits, pool = self._paged_fn(
-                    self.params, view.pool,
-                    torch.as_tensor(view.tables, device=self.device),
-                    torch.as_tensor(view.lengths, device=self.device), toks)
-                # greedy argmax on the device; one host sync per round
-                nxt_tokens = torch.argmax(logits, dim=-1).tolist()
-                self.kv.commit_decode(view, pool)
-            except OutOfMemory:
-                # the pool shrank under us (failover mid-decode): the
-                # round's working set can no longer be materialized —
-                # cancel the batch instead of crashing the engine
-                for slot, req in live:
-                    self._cancel(req, "capacity")
-                    del self.active[slot]
-                    self._slot_free.append(slot)
+            tr = self.trace
+            with (tr.span("serve.decode", op="serve", batch=len(live))
+                  if tr.enabled else NULL_SPAN) as sid:
+                view, nxt_tokens = self._paged_batch(live)
+            if view is None:
                 live = []
             else:
                 self.paged_rounds += 1
-                tr = self.trace
-                if tr.enabled:
-                    tr.event("decode.paged", op="serve",
-                             batch=len(live), pages=len(view.pages),
-                             pool=int(view.pool.shape[0]))
+                span = tr.closed(sid) if tr.enabled else None
+                if span is not None:
+                    span.args.update(pages=len(view.pages),
+                                     pool=int(view.pool.shape[0]))
         for i, (slot, req) in enumerate(live):
             req.out_tokens.append(nxt_tokens[i])
             now = self.clock()
@@ -704,6 +724,37 @@ class ServeEngine:
             return finished, (self.ecfg.round_time_s if self.active
                               or finished else 0.0)
         return finished, time.monotonic() - round_t0
+
+    def _paged_batch(self, live: List[tuple]) -> tuple:
+        """One batched paged step over ``live`` (slot, request) pairs:
+        ``(view, next tokens)``, or ``(None, None)`` when the pool can no
+        longer hold the round's pages and the batch was cancelled."""
+        try:
+            view = self.kv.decode_view(
+                [r.seq_id for _, r in live], self._max_pages,
+                into=self.staged.rows if self.staged else None)
+            toks = torch.tensor([[r.out_tokens[-1]] for _, r in live],
+                                dtype=torch.int32, device=self.device)
+            logits, pool = self._paged_fn(
+                self.params, view.pool,
+                torch.as_tensor(view.tables, device=self.device),
+                torch.as_tensor(view.lengths, device=self.device), toks)
+            # greedy argmax on the device; one host sync per round
+            tr = self.trace
+            with (tr.span("serve.readback", op="serve", batch=len(live))
+                  if tr.enabled else NULL_SPAN):
+                nxt_tokens = torch.argmax(logits, dim=-1).tolist()
+            self.kv.commit_decode(view, pool)
+        except OutOfMemory:
+            # the pool shrank under us (failover mid-decode): the
+            # round's working set can no longer be materialized —
+            # cancel the batch instead of crashing the engine
+            for slot, req in live:
+                self._cancel(req, "capacity")
+                del self.active[slot]
+                self._slot_free.append(slot)
+            return None, None
+        return view, nxt_tokens
 
     def _qos_finish(self, req: Request) -> None:
         """Feed the completed request's latency to its tenant's SLO

@@ -95,7 +95,8 @@ class PagedKVStore:
         self.page_shape = (L, 2, page_tokens, KV, hd)
         self.buf = LinkedBuffer(
             name=f"kv:{device_id}", device_id=device_id, host=host,
-            executor=executor or TierExecutor(device),
+            executor=executor or TierExecutor(device,
+                                              trace=host.fm.tracer),
             page_shape=self.page_shape,
             dtype=getattr(torch, cfg.dtype), onboard_pages=onboard_pages,
             policy="cost", prefetch_depth=prefetch_depth,
@@ -294,9 +295,39 @@ class PagedKVStore:
             seq.pages.extend(self.buf.append_pages(1))
         return seq.pages[idx]
 
+    def _traced(self, name: str, access: Callable[[], object],
+                pages: Callable[[object], int]):
+        """``access()`` under span ``name`` (tracing on), which takes the
+        ``pages`` the access touched and the ``hits``, ``misses`` and
+        ``waves`` of the buffer's batched path in it; ``fault.batch`` and
+        the executor's ``exec.*_pages`` spans are its children."""
+        tr = self.buf.trace
+        if not tr.enabled:
+            return access()
+        c = self.buf.metrics.tier(self.buf.name, "onboard")
+        hits, misses, waves = c.hits, c.misses, self.buf.waves
+        with tr.span(name, op="demand") as sid:
+            out = access()
+        span = tr.closed(sid)
+        if span is not None:
+            span.args.update(pages=pages(out), hits=c.hits - hits,
+                             misses=c.misses - misses,
+                             waves=self.buf.waves - waves)
+        return out
+
     def decode_view(self, sids: List[int], max_pages: int,
                     into: Optional[Callable[[int], torch.Tensor]] = None
                     ) -> DecodeView:
+        """One round's :class:`DecodeView` (:meth:`_decode_view`), under a
+        ``kv.decode_view`` span with tracing on (``pages``: the union)."""
+        return self._traced(
+            "kv.decode_view",
+            lambda: self._decode_view(sids, max_pages, into),
+            lambda view: len(view.pages))
+
+    def _decode_view(self, sids: List[int], max_pages: int,
+                     into: Optional[Callable[[int], torch.Tensor]] = None
+                     ) -> DecodeView:
         """Build one round's batched decode view: tail pages guaranteed,
         the union of the active sequences' pages faulted onboard with ONE
         coalesced ``read_many`` burst (metered exactly like any other
@@ -336,7 +367,13 @@ class PagedKVStore:
         """Write one decode round's results back: only the tail pages
         changed (the step scatters the new token's K/V there), so ONE
         ``write_many`` burst covers the whole batch, and each sequence
-        advances by the token it just stored."""
+        advances by the token it just stored.  With tracing on, a
+        ``kv.commit_decode`` span (``pages``: the tail pages)."""
+        self._traced("kv.commit_decode",
+                     lambda: self._commit_decode(view, pool),
+                     lambda _: len(view.tail_pages))
+
+    def _commit_decode(self, view: DecodeView, pool: torch.Tensor) -> None:
         rows = pool[view.tail_index]
         self.buf.write_many(view.tail_pages, rows)
         for sid in view.sids:

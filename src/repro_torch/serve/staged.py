@@ -76,6 +76,15 @@ kernels that ran.
 
 On the CPU (the caller asked for it, as the tests do) the same
 static-buffer paths run with the step called directly; no graph exists.
+
+With tracing on (``trace``, the engine's tracer), each call runs under one
+span of its mode, ``staged.eager``, ``staged.capture`` or
+``staged.replay``, carrying ``fn`` (``prefill``, ``step``, ``slot`` or
+``train``) and ``key`` (the prompt length S, the batch size B or the
+slot); the replay that gives a capture's result is a ``staged.replay``
+span inside its ``staged.capture``, so each mode's spans count what its
+counter counts (``eager_*``, ``captures``, ``replays``).  A pool-buffer
+regrowth is a ``staged.regrow`` event with the old and new row counts.
 """
 
 from __future__ import annotations
@@ -88,6 +97,7 @@ import torch
 
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.trace import GLOBAL_TRACER, NULL_SPAN, SpanTracer
 
 
 @dataclasses.dataclass
@@ -140,9 +150,14 @@ class _Staged:
     function, the params address check, and capture and replay with the
     counts a graph carries."""
 
+    #: what the spans call the staged function (``fn``)
+    FN = ""
+
     def __init__(self, step: Callable, device):
         self.step = step
         self.device = torch.device(device)
+        #: the tracer a call's span goes to (the engine sets its own)
+        self.trace: SpanTracer = GLOBAL_TRACER
         self.replays = 0
         #: graphs captured
         self.captures = 0
@@ -178,8 +193,17 @@ class _Staged:
         a serve step's logits (its cache or pool is a static buffer)."""
         return result[0]
 
-    def _replay(self, staged: _Graph):
-        staged.graph.replay()
+    def _span(self, mode: str, key=None):
+        """The span a call in ``mode`` runs under, or the no-op with
+        tracing off."""
+        tr = self.trace
+        if not tr.enabled:
+            return NULL_SPAN
+        return tr.span("staged." + mode, op="serve", fn=self.FN, key=key)
+
+    def _replay(self, staged: _Graph, key=None):
+        with self._span("replay", key):
+            staged.graph.replay()
         cuda_build.add_launches(staged.launches)
         kops.add_dispatches(staged.dispatches)
         self.replays += 1
@@ -221,6 +245,8 @@ class StagedStep(_Staged):
     pool)``, where ``pool`` is :meth:`rows` of the round's page count and
     the returned pool is the whole buffer (rows ``0..n-1`` are the round's
     pages, the tail pages updated in place)."""
+
+    FN = "step"
 
     def __init__(self, step: Callable, *, slots: int, max_pages: int,
                  page_shape: Sequence[int], dtype: torch.dtype,
@@ -274,6 +300,10 @@ class StagedStep(_Staged):
             self.pool = torch.empty((min(size, limit), *self.page_shape),
                                     dtype=self.dtype, device=self.device)
             self.regrowths += 1
+            tr = self.trace
+            if tr.enabled:
+                tr.event("staged.regrow", op="serve", fn=self.FN,
+                         rows_from=have, rows_to=len(self.pool))
         return self.pool[:n]
 
     def _stage(self, pool, page_table, lengths, token) -> int:
@@ -304,11 +334,14 @@ class StagedStep(_Staged):
         if self.device.type == "cuda":
             staged = self.graphs.get(B)
             if staged is None and self.rounds[B] > 1:
-                staged = self.graphs[B] = self._capture(args)
+                with self._span("capture", B):
+                    staged = self.graphs[B] = self._capture(args)
+                    return self._replay(staged, B), self.pool
             if staged is not None:
-                return self._replay(staged), self.pool
+                return self._replay(staged, B), self.pool
         self.eager_rounds += 1
-        return self.step(*args)
+        with self._span("eager", B):
+            return self.step(*args)
 
 
 @dataclasses.dataclass
@@ -325,6 +358,8 @@ class StagedSlots(_Staged):
     in a slot with :meth:`seat` and stepped with ``(params, slot, token)
     -> (logits, the slot's cache)``; :meth:`take` copies a preempted
     request's cache out.  ``init_cache()`` makes one slot's cache."""
+
+    FN = "slot"
 
     def __init__(self, step: Callable, init_cache: Callable[[], dict], *,
                  device):
@@ -366,11 +401,14 @@ class StagedSlots(_Staged):
         args = (params, state.cache, state.token)
         if self.device.type == "cuda":
             if state.graph is None and state.steps > 1:
-                state.graph = self._capture(args)
+                with self._span("capture", slot):
+                    state.graph = self._capture(args)
+                    return self._replay(state.graph, slot), state.cache
             if state.graph is not None:
-                return self._replay(state.graph), state.cache
+                return self._replay(state.graph, slot), state.cache
         self.eager_steps += 1
-        return self.step(*args)
+        with self._span("eager", slot):
+            return self.step(*args)
 
 
 class StagedPrefill(_Staged):
@@ -380,6 +418,8 @@ class StagedPrefill(_Staged):
     [1, V], cache)``, where ``cache`` is the static cache, filled for this
     prompt and valid until the next call.  ``init_cache()`` makes the
     cache (B = 1, ``max_seq_len`` slots)."""
+
+    FN = "prefill"
 
     def __init__(self, step: Callable, init_cache: Callable[[], dict], *,
                  max_seq_len: int, device):
@@ -410,8 +450,11 @@ class StagedPrefill(_Staged):
         if self.device.type == "cuda":
             staged = self.graphs.get(S)
             if staged is None and self.prefills[S] > 1:
-                staged = self.graphs[S] = self._capture(args)
+                with self._span("capture", S):
+                    staged = self.graphs[S] = self._capture(args)
+                    return self._replay(staged, S), self.cache
             if staged is not None:
-                return self._replay(staged), self.cache
+                return self._replay(staged, S), self.cache
         self.eager_prefills += 1
-        return self.step(*args)
+        with self._span("eager", S):
+            return self.step(*args)

@@ -63,6 +63,8 @@ class StagedTrainStep(_Staged):
     streamed step whole), and a capture or a replay whole (``capture``,
     ``replay``): inside a graph no stage can be timed apart."""
 
+    FN = "train"
+
     def __init__(self, step_: Callable, template: Dict[str, torch.Tensor],
                  *, device):
         super().__init__(step_, device)
@@ -104,21 +106,25 @@ class StagedTrainStep(_Staged):
         args = (params, opt_state, self.batch, self.outputs)
         if self.device.type != "cuda":
             self.eager_steps += 1
-            return self.step(*args, clock), "eager"
+            with self._span("eager"):
+                return self.step(*args, clock), "eager"
         if self.steps > 1:
             mode = "replay" if self.graph is not None else "capture"
             if clock is not None:
                 clock.start()
             if self.graph is None:
-                self.graph = self._capture(args)
-            out = self._replay(self.graph)
+                with self._span("capture"):
+                    self.graph = self._capture(args)
+                    out = self._replay(self.graph)
+            else:
+                out = self._replay(self.graph)
             if clock is not None:
                 clock.lap(mode)
             return out, mode
         self.eager_steps += 1
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
+        with self._span("eager"), torch.cuda.stream(self._stream):
             self.step(*args, clock)
         current.wait_stream(self._stream)
         return self.outputs, "eager"

@@ -77,6 +77,33 @@ class Recorder(offload.HostStreams):
     def moves(self, leaf):
         return True if self.paged is None else bool(self.paged(leaf))
 
+    def stamp(self, stream):
+        """A timing event on ``stream``, logged there like an operation
+        (kind ``stamp``): see :class:`Stamp`."""
+        return Stamp(self, self._log(stream, "stamp", {}))
+
+
+class Stamp:
+    """A recorded timing event.  It reads as landed only once the host
+    has waited for it (``synchronize``, logged as the host's
+    ``stamp_wait``), and its ``elapsed_time`` to a later stamp on its
+    stream is the number of operations between them, in milliseconds."""
+
+    def __init__(self, rec, entry):
+        self.rec, self.entry, self.landed = rec, entry, False
+
+    def query(self):
+        return self.landed
+
+    def synchronize(self):
+        self.rec.wait("host", self.entry["clock"])
+        self.rec.host_op("stamp_wait", stamp=self.entry)
+        self.landed = True
+
+    def elapsed_time(self, end):
+        s = self.entry["stream"]
+        return float(end.entry["clock"][s] - self.entry["clock"][s] - 1)
+
 
 def before(a, b) -> bool:
     """``a`` happens before ``b`` on the device."""

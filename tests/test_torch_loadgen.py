@@ -261,11 +261,26 @@ def test_pipelined_equals_phased_with_less_exposed_wait(params):
     assert pipe["link_wait_s"] < phased["link_wait_s"]
 
 
+#: spans the port's serving path records and the reference's does not:
+#: the round's phases, each staged call, the KV store's batched accesses
+#: and the executor's bursts (the reference's executor records into the
+#: disabled global tracer); the reference's ``decode.paged`` event is the
+#: port's ``serve.decode`` span
+PORT_ONLY_SPANS = {
+    "serve.admit", "serve.prefill", "serve.decode", "serve.readback",
+    "serve.tail", "staged.eager", "staged.capture", "staged.replay",
+    "staged.regrow", "kv.decode_view", "kv.commit_decode",
+    "exec.read_pages", "exec.write_pages"}
+
+
 def test_lmbtrace_reads_the_ports_trace(modelling_reference, params,
                                         tmp_path):
     """A traced sweep exported by each package's ``obs.export`` gives
     ``tools/lmbtrace.py`` the same summary: span names and counts, link
-    bytes and modelled seconds by class, per-tenant link waits."""
+    bytes and modelled seconds by class, per-tenant link waits.  The
+    port's names are the reference's, with ``decode.paged`` counted as
+    ``serve.decode``, and the spans it alone records
+    (``PORT_ONLY_SPANS``)."""
     from repro.obs.export import write_chrome_trace as jwrite
     from repro_torch.obs.export import write_chrome_trace
     sys.path.insert(0, str(ROOT / "tools"))
@@ -291,5 +306,12 @@ def test_lmbtrace_reads_the_ports_trace(modelling_reference, params,
         assert out.returncode == 0, out.stderr
         assert "link.xfer" in out.stdout and "serve.round" in out.stdout
     jsum, tsum = summaries
+    names = dict(tsum.pop("names"))
+    jnames = dict(jsum.pop("names"))
+    assert names["serve.decode"] == jnames.pop("decode.paged") > 0
+    port_only = {k: names.pop(k) for k in PORT_ONLY_SPANS if k in names}
+    assert names == jnames
+    assert tsum.pop("spans") == jsum.pop("spans") - port_only[
+        "serve.decode"] + sum(port_only.values())
     assert tsum == jsum
-    assert tsum["names"]["serve.round"] > 0 and tsum["op_bytes"]
+    assert names["serve.round"] > 0 and tsum["op_bytes"]

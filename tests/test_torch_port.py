@@ -51,6 +51,15 @@ DOCSTRING_EDITED = ["serve/loadgen.py", "rack/__init__.py"]
 COMMENT_EDITED = ["models/flags.py"]
 
 
+#: copies the port extends: they put the serving path's spans on the
+#: profiler's clock (``obs/trace.py``), mark the spans whose duration is
+#: modeled (``core/fabric.py``, ``core/faults.py``) and give those a track
+#: of their own (``obs/export.py``); each holds every line of the
+#: original, in order, and only adds lines
+EXTENDED = ["obs/trace.py", "obs/export.py", "core/fabric.py",
+            "core/faults.py"]
+
+
 def _rewritten(rel):
     return re.sub(r"(?<![\w.])repro\.", "repro_torch.",
                   (SRC / "repro" / rel).read_text())
@@ -58,7 +67,16 @@ def _rewritten(rel):
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_module_equals_the_original(rel):
-    assert (PORT / rel).read_text() == _rewritten(rel)
+    """Equal to the original, or, for a copy the port extends
+    (``EXTENDED``), the original with lines added and none changed."""
+    port, orig = (PORT / rel).read_text(), _rewritten(rel)
+    if rel not in EXTENDED:
+        assert port == orig
+        return
+    import difflib
+    ops = difflib.SequenceMatcher(None, orig.splitlines(), port.splitlines(),
+                                  autojunk=False).get_opcodes()
+    assert {op for op, *_ in ops} == {"equal", "insert"}
 
 
 def _without_docstring(text):
