@@ -10,11 +10,12 @@ Phases (any failure raises and the script exits non-zero):
      csrc`` (one process per source, all started together);
   2. kernels against their plain PyTorch versions on the card, at the
      serving paths' full-width shapes (f32 within 1e-4, bf16 within 2e-2,
-     absolute: the paged plain version rounds p to bf16 and the paged
-     kernel does not; the flash kernel rounds p to bf16 and its plain
-     version does not; each check also prints the largest |plain|, since
-     one bf16 step passes 2e-2 from magnitude 4 up), on the paged split
-     plan's edges at full width (rows ending inside a split, trailing
+     absolute: the paged plain version rounds p to bf16 after the
+     softmax's division, the paged tensor-core kernel before it and the
+     CUDA-core kernel not at all; the flash kernel rounds p to bf16 and its
+     plain version does not; each check also prints the largest |plain|,
+     since one bf16 step passes 2e-2 from magnitude 4 up), on the paged
+     split plan's edges at full width (rows ending inside a split, trailing
      splits with no live token, every page live, a page table of 13
      columns over 7 splits, B = 1 at 512 tokens), at a small shape with
      the edge cases (length 0, lengths on a page boundary, unmapped pages
@@ -33,7 +34,13 @@ Phases (any failure raises and the script exits non-zero):
      time alone); beside
      its plain version's time, its bound and, for flash,
      ``scaled_dot_product_attention`` timed both ways as a yardstick the
-     port never calls.  Paged and flash are also checked at dbrx-132b's
+     port never calls; the paged kernel also at granite-34b's decode
+     batch (``GRANITE_DECODE``: B 32, 48 heads on one kv head, rows of
+     512-1,600 tokens in 32-token pages, MP 256), its own ``kernels`` row,
+     over ``GRANITE_TIMED_LAYERS`` layer views of one pool taken in turn,
+     so each call reads its K/V from HBM as a decode step's layers do, and
+     checked to run on tensor cores.  Paged and flash are also checked at
+     dbrx-132b's
      shapes (48 heads over 8 KV heads), granite-34b's (48 over 1),
      chameleon-34b's (64 over 8) and command-r-plus-104b's (96 over 8),
      paged at h2o-danube-3-4b's heads and head_dim 120 (32 over 8) and on
@@ -247,8 +254,10 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 times the paged, flash and WKV6 scan wrappers of another checkout of the
 port (for example the parent commit, unpacked with ``git archive``) and of
-this one at the main path's bf16 shapes, both ways, in four fresh
-processes (other, this, this, other), and prints one JSON line per turn.
+this one at the main path's bf16 shapes, the paged wrapper also at
+granite-34b's decode batch (``paged_attention_granite``, phase 2's row),
+both ways, in four fresh processes (other, this, this, other), and prints
+one JSON line per turn.
 
     python3 chip_smoke.py --dense-staged hymba-1.5b,mixtral-8x22b
 
@@ -261,6 +270,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import re
 import subprocess
@@ -292,6 +302,11 @@ H2O_ATTN = (32, 8, 120, 4096)
 #: chameleon-34b's and command-r-plus-104b's (12 heads a KV head: chunks
 #: of 8 and 4)
 GRANITE_ATTN = (48, 1, 128)
+#: granite-34b's decode batch in the benchmark's completion cell: (B, page
+#: tokens T, page-table width MP, shortest and longest row), and the layer
+#: views of one pool phase 2 times it over
+GRANITE_DECODE = (32, 32, 256, 512, 1600)
+GRANITE_TIMED_LAYERS = 8
 CHAMELEON_ATTN = (64, 8, 128)
 COMMAND_R_ATTN = (96, 8, 128)
 #: phase 4e's one long request: prompt tokens (past the 4,096-token
@@ -521,6 +536,15 @@ def paged_inputs(torch, gen, dtype, B, H, KV, hd, T, MP, lengths, L=3,
                  layer=1, garbage=True):
     """A serving-pool-shaped input: per-layer strided views of a
     [P, L, 2, T, KV, hd] pool, pages scattered, unmapped pages garbage."""
+    q, pool, table, lens = paged_pool(torch, gen, dtype, B, H, KV, hd, T, MP,
+                                      lengths, L, garbage)
+    return q, pool[:, layer, 0], pool[:, layer, 1], table, lens
+
+
+def paged_pool(torch, gen, dtype, B, H, KV, hd, T, MP, lengths, L,
+               garbage=True):
+    """q, the [P, L, 2, T, KV, hd] pool, the page table and the lengths
+    of ``paged_inputs``."""
     dev = "cuda"
     pages = [max(1, -(-int(n) // T)) if n else 0 for n in lengths]
     P = sum(pages) + 2
@@ -534,7 +558,7 @@ def paged_inputs(torch, gen, dtype, B, H, KV, hd, T, MP, lengths, L=3,
         for i in range(pages[b]):
             table[b, i] = perm.pop()
     q = torch.randn((B, H, hd), generator=gen, device=dev).to(dtype)
-    return (q, pool[:, layer, 0], pool[:, layer, 1], table.to(dev),
+    return (q, pool, table.to(dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
@@ -569,7 +593,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     sms = pa.sm_count(torch.device("cuda", 0))
 
     def plan(B, mp):
-        return pa.split_plan(B, KV, mp, G=H // KV, sm_count=sms)
+        return pa.split_plan(B, KV, mp, T=T, G=H // KV, sm_count=sms)
 
     errs = {"paged_attention": 0.0, "flash_attention": 0.0,
             "flash_seamless": 0.0, "flash_h2o": 0.0}
@@ -590,12 +614,12 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         B = len(serve_lengths)
         args = paged_inputs(torch, gen, dtype, B, h, kv, d, T, MP,
                             serve_lengths, L=DBRX_LAYERS, layer=5)
-        dplan = pa.split_plan(B, kv, MP, G=h // kv, sm_count=sms)
+        dplan = pa.split_plan(B, kv, MP, T=T, G=h // kv, sm_count=sms)
         check(f"paged {tag} dbrx-132b B={B} H={h} KV={kv} plan={dplan}",
               pa.paged_attention_cuda(*args),
               pa.paged_attention_plain(*args), tol[dtype])
-        # paged at the decode batch of the configs phases 4f-4h serve (MQA
-        # in six head chunks; 12 heads a KV head in chunks of 8 and 4) and
+        # paged at the decode batch of the configs phases 4f-4h serve (MQA:
+        # 48 heads in three m16 tiles; 12 heads a KV head in one) and
         # at h2o-danube-3-4b's heads and head_dim 120, which no registered
         # config pages but the reference's kernel takes
         for name, (h, kv, d) in (("granite-34b", GRANITE_ATTN),
@@ -604,7 +628,8 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                                  ("h2o heads", H2O_ATTN[:3])):
             args = paged_inputs(torch, gen, dtype, B, h, kv, d, T, MP,
                                 serve_lengths)
-            cplan = pa.split_plan(B, kv, MP, G=h // kv, sm_count=sms)
+            cplan = pa.split_plan(B, kv, MP, T=T, G=h // kv,
+                                  sm_count=sms)
             check(f"paged {tag} {name} B={B} H={h} KV={kv} hd={d} MP={MP} "
                   f"plan={cplan}", pa.paged_attention_cuda(*args),
                   pa.paged_attention_plain(*args), tol[dtype])
@@ -715,6 +740,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
     h2o = tuple(torch.randn((1, prompt_max, h, h2d), generator=gen,
                             device="cuda").to(torch.bfloat16)
                 for h in (h2h, h2kv, h2kv))
+    granite = granite_paged_row(torch, pa)
     return [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -727,6 +753,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
          "library_ms": None, "device_ms": pa_times["device_ms"],
          "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
                   f"live_tokens={live} bf16, plan {plan(B, MP)}"},
+        granite,
         flash_row(torch, F, fa, (q, k, v), errs["flash_attention"],
                   "qwen2-1.5b"),
         flash_row(torch, F, fa, seamless, errs["flash_seamless"],
@@ -734,6 +761,72 @@ def kernel_phase(torch, serve_lengths, prompt_max):
         flash_row(torch, F, fa, h2o, errs["flash_h2o"], "h2o-danube-3-4b",
                   window=h2win),
     ]
+
+
+def granite_decode_inputs(torch):
+    """granite-34b's decode batch (``GRANITE_DECODE``) in bf16 from a fixed
+    seed: q, one (K, V) view per layer of a ``GRANITE_TIMED_LAYERS``-layer
+    pool, the page table and the lengths."""
+    import numpy as np
+    B, T, MP, lo, hi = GRANITE_DECODE
+    H, KV, hd = GRANITE_ATTN
+    lengths = [int(n) for n in
+               np.random.default_rng(6).integers(lo, hi + 1, B)]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, pool, table, lens = paged_pool(torch, gen, torch.bfloat16, B, H, KV,
+                                      hd, T, MP, lengths,
+                                      GRANITE_TIMED_LAYERS)
+    views = [(pool[:, i, 0], pool[:, i, 1])
+             for i in range(GRANITE_TIMED_LAYERS)]
+    return q, views, table, lens
+
+
+def cycled(fn, views):
+    """A call of ``fn(k, v)`` on the next layer view in turn: a graph of
+    many calls reads each layer's pages from HBM, not from L2."""
+    turn = itertools.count()
+    return lambda: fn(*views[next(turn) % len(views)])
+
+
+def granite_paged_row(torch, pa) -> dict:
+    """The paged kernel's ``kernels`` row at granite-34b's decode batch:
+    checked against the plain version (bf16, 2e-2) and to run on tensor
+    cores, then both times over the layer views in turn, the plain
+    version's time and the bound (live K/V read once)."""
+    from repro_torch.kernels import cuda_build
+    q, views, table, lens = granite_decode_inputs(torch)
+    B, T, MP, _, _ = GRANITE_DECODE
+    H, KV, hd = GRANITE_ATTN
+    before = cuda_build.launch_counts().get(pa.MMA_LAUNCHES, 0)
+    err = check(f"paged bfloat16 granite-34b decode B={B} H={H} KV={KV} "
+                f"T={T} MP={MP}",
+                pa.paged_attention_cuda(q, *views[0], table, lens),
+                pa.paged_attention_plain(q, *views[0], table, lens), 2e-2)
+    if cuda_build.launch_counts().get(pa.MMA_LAUNCHES, 0) != before + 1:
+        raise AssertionError("granite-34b's paged call did not run on "
+                             "tensor cores")
+    live = int(lens.sum())
+    nbytes = (2 * live * KV * hd + 2 * B * H * hd) * 2 + 4 * B * MP + 4 * B
+    flops = 4 * live * H * hd
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = flops / PEAK_FLOPS["bfloat16"]
+    times = both_times(cycled(
+        lambda k, v: pa.paged_attention_cuda(q, k, v, table, lens), views))
+    plan = pa.split_plan(B, KV, MP, T=T, G=H // KV,
+                         sm_count=pa.sm_count(q.device))
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:106",
+            "launches": 0, "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": time_ms(lambda: pa.paged_attention_plain(
+                q, *views[0], table, lens), iters=5, repeats=3),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None, "device_ms": times["device_ms"],
+            "path": "granite-34b",
+            "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
+                     f"live_tokens={live} bf16, plan {plan}, "
+                     f"{GRANITE_TIMED_LAYERS} layer views in turn"}
 
 
 def head_dim_sweep(torch, gen, dtype, tol: float) -> None:
@@ -2320,6 +2413,7 @@ def new_serve_phases(torch, lens, news) -> dict:
     command-r-plus-104b (4f-4h) decode on the LMB-paged path.
     mixtral-8x22b's MoE layer is timed apart, as dbrx's."""
     from repro_torch.configs.base import MOE, get_config
+    from repro_torch.kernels.paged_attention import MMA_LAUNCHES
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve import EngineConfig
 
@@ -2347,6 +2441,9 @@ def new_serve_phases(torch, lens, news) -> dict:
             check_paged(res, cfg)
             check_counts(res, cfg, {
                 "paged_attention": L * res["paged_rounds"],
+                # bf16 at head_dim 128: every layer of every decode round
+                # on the tensor-core split kernel
+                MMA_LAUNCHES: L * res["paged_rounds"],
                 "flash_attention": L * len(prompts)})
         else:
             if res["decode_path"] != "dense" or res["paged_rounds"] != 0:
@@ -3509,9 +3606,13 @@ def time_tree(root: Path) -> int:
     lens, _, serve_lengths, _ = workload()
     paged, flash = main_path_inputs(torch, serve_lengths, max(lens))
     scan = wkv_main_inputs(torch, max(lens))
+    q, views, table, lengths = granite_decode_inputs(torch)
     print(json.dumps({
         "paged_attention": both_times(
             lambda: pa.paged_attention_cuda(*paged)),
+        "paged_attention_granite": both_times(cycled(
+            lambda k, v: pa.paged_attention_cuda(q, k, v, table, lengths),
+            views)),
         "flash_attention": both_times(
             lambda: fa.flash_attention_cuda(*flash)),
         "rwkv6_scan": both_times(lambda: rw.rwkv6_scan_cuda(*scan))}))

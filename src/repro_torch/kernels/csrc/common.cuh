@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels: f32 <-> storage-type
-// conversions, warp reductions, 16-byte cp.async copies and 16-byte
-// vectors of a storage type.
+// conversions, warp reductions, 16-byte cp.async copies, 16-byte vectors
+// of a storage type, and the bf16 mma.sync fragment code of the
+// tensor-core attention kernels (flash, paged).
 // Included by each csrc/*.cu; cuda_build hashes this header into every
 // library's name, so an edit here rebuilds them all.
 
@@ -81,5 +82,41 @@ struct Vec16<__nv_bfloat16> {
     }
   }
 };
+
+// ldmatrix: four 8x8 b16 matrices from shared memory, one row address a
+// lane; .trans transposes each (V as the B operand of P V)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half); the rounded
+// values are returned through lo and hi
+__device__ __forceinline__ uint32_t pack_bf16(float& lo, float& hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  lo = __low2float(p);
+  hi = __high2float(p);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
 
 }  // namespace

@@ -1,20 +1,26 @@
-"""Paged decode attention — the CUDA kernel, its plain version, a wrapper.
+"""Paged decode attention — the CUDA kernels, their plain version, a wrapper.
 
 Port of ``repro.kernels.paged_attention``.  The kernels
 (``csrc/paged_attention.cu``) replace the Pallas TPU kernel
 ``paged_attention``, whose grid (B, KV) walks each row's pages in order.
-Here the pages of each row are split over blocks: a split kernel with grid
-(B, KV, n_splits) scores each block's range of page-table columns with an
-online softmax in f32 registers and writes a partial (m, l, acc), and a
-combine kernel merges the partials per (row, head) by log-sum-exp.
-:func:`split_plan` chooses the splits on the host from the grid's other
-axes, the page-table width and the card's SM count, never from ``lengths``
-(which lives on the card).
+Here each row's pages are cut into splits of :func:`split_plan`'s
+``pages_per_split``; a split kernel scores each split with an online
+softmax in f32 and writes a partial (m, l, acc), and a combine kernel
+merges the partials per (row, head) by log-sum-exp.  The wrapper routes by
+dtype and head_dim (:func:`uses_tensor_cores`): bf16 up to
+``MMA_MAX_HEAD_DIM`` runs the tensor-core split kernel, which scores all
+G query heads of a kv head as ``mma.sync`` tiles and reads each live page
+once per (row, kv head), on a persistent grid that walks the live splits
+it counts from ``lengths`` on the card; f32 (whose tensor-core form would
+be TF32) and wider bf16 heads run the CUDA-core split kernel over every
+split of the page table.  The plan is chosen on the host from the page
+size, G and the page table's width, never from ``lengths`` (which lives on
+the card), so a CUDA graph replays one launch for any lengths.
 
 :func:`paged_attention_plain` mirrors ``paged_attention_xla`` op for op
 (the same einsum order, f32 scores with the scale applied after, -1e30
 masking, probabilities cast to V's dtype, zeros for rows of length 0).
-The CPU path and the tests use it; ``chip_smoke.py`` holds the kernel
+The CPU path and the tests use it; ``chip_smoke.py`` holds the kernels
 against it on the card.
 """
 
@@ -31,25 +37,54 @@ from repro_torch.kernels import cuda_build
 from repro_torch.kernels.cuda_build import H100_SXM_SMS, sm_count
 
 NEG_INF = -1e30
-BLOCKS_PER_SM = 2       # the split kernel's target occupancy of the grid
-MAX_G = 8               # query heads one split block scores (kMaxG)
+MAX_SPLITS = 512        # splits a row may have: the combine kernel's limit
+#: tokens a split holds per query head it serves: a split of one kv head
+#: reads 4 hd bytes of bf16 K and V a token and writes 4 (hd + 2) bytes of
+#: f32 partial a head, so its partials stay under a quarter of its reads
+SPLIT_TOKENS_PER_HEAD = 4
+#: the fewest tokens a split holds: four 32-token tiles of the tensor-core
+#: kernel, so a split's fixed cost (finding its row, q, the first copies,
+#: the partial's write) stays about a fifth of its time
+MIN_SPLIT_TOKENS = 128
+#: a page table of which one column in MIN_LIVE_SHARE is live still gives
+#: every SM a split: a small table (a short max_seq_len, a small batch)
+#: takes smaller splits
+MIN_LIVE_SHARE = 4
+#: the widest head_dim of the tensor-core split kernel (its instantiations:
+#: 64 and 128, narrower head_dims zero-padded up to one)
+MMA_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: ``cuda_build.LAUNCHES`` names of the two split kernels' calls (each
+#: call also counts once as ``paged_attention``)
+MMA_LAUNCHES = "paged_attention.tensor_cores"
+CUDA_CORE_LAUNCHES = "paged_attention.cuda_cores"
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(B: int, KV: int, MP: int, *, G: int = 1,
+def split_plan(B: int, KV: int, MP: int, *, T: int, G: int = 1,
                sm_count: int = H100_SXM_SMS) -> Tuple[int, int]:
     """``(n_splits, pages_per_split)`` for a batch of B rows, KV kv heads
-    of G query heads each and a page table MP columns wide: split s takes
-    the columns ``[s * pages_per_split, min((s + 1) * pages_per_split,
-    MP))``.  Aims at about ``BLOCKS_PER_SM`` blocks per SM over the split
-    kernel's grid (B, KV * ceil(G / MAX_G), n_splits), and no trailing
-    split without a column."""
-    blocks = B * KV * -(-G // MAX_G)
-    want = -(-sm_count * BLOCKS_PER_SM // max(1, blocks))
-    n = max(1, min(MP, want))
-    per = max(1, -(-MP // n))
+    of G query heads each, pages of T tokens and a page table MP columns
+    wide: split s of a row takes its columns ``[s * pages_per_split,
+    min((s + 1) * pages_per_split, MP))``, and a row of n tokens has
+    ``ceil(min(n, MP * T) / (pages_per_split * T))`` live splits.
+
+    ``pages_per_split`` follows the page size and G (at least
+    ``SPLIT_TOKENS_PER_HEAD * G`` and ``MIN_SPLIT_TOKENS`` tokens), not the
+    page table's width, so the live splits follow the live pages.  It
+    shrinks where a table with one column in ``MIN_LIVE_SHARE`` live would
+    give fewer splits than the card has SMs, and grows where a row would
+    pass ``MAX_SPLITS``."""
+    per = -(-max(SPLIT_TOKENS_PER_HEAD * G, MIN_SPLIT_TOKENS) // T)
+    per = min(per, B * KV * MP // (MIN_LIVE_SHARE * sm_count))
+    per = max(1, per, -(-MP // MAX_SPLITS))
     return max(1, -(-MP // per)), per
+
+
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """The wrapper's route: bf16 at head_dim <= ``MMA_MAX_HEAD_DIM`` runs
+    the tensor-core split kernel, everything else the CUDA-core one."""
+    return dtype == torch.bfloat16 and hd <= MMA_MAX_HEAD_DIM
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
@@ -95,8 +130,10 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     ``k_pages``/``v_pages`` may be strided views (e.g. ``pool[:, l, 0]``
     of the serving pool) as long as each head's ``hd`` values are
     contiguous and the views start and step on 16-byte boundaries (the
-    kernel reads 16-byte vectors).  Raises on anything the kernel does not
-    take.  Counts one launch per call (a split and a combine kernel)."""
+    kernel reads 16-byte vectors).  Raises on anything the kernels do not
+    take.  Counts one launch per call (a split and a combine kernel) as
+    ``paged_attention``, and once more under the route's name
+    (``MMA_LAUNCHES`` or ``CUDA_CORE_LAUNCHES``)."""
     _check(q.is_cuda, "q must be a CUDA tensor")
     dev = q.device
     tensors = (k_pages, v_pages, page_table, lengths)
@@ -136,32 +173,38 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     scale = 1.0 / math.sqrt(hd) if scale_override is None else \
         scale_override
     MP = page_table.shape[1]
-    n_splits, per = split_plan(B, KV, MP, G=H // KV,
-                               sm_count=sm_count(dev))
+    sms = sm_count(dev)
+    n_splits, per = split_plan(B, KV, MP, T=T, G=H // KV, sm_count=sms)
     part = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
                        device=dev)
     lib = _lib()
-    err = lib.paged_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(),
-        part.data_ptr() + 4 * B * H * n_splits * hd, B, H, KV, hd, T, MP,
-        n_splits, per, *k_st[:3], *v_st[:3],
-        float(scale), torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part.data_ptr(), part.data_ptr() + 4 * B * H * n_splits * hd,
+            B, H, KV, hd, T, MP, n_splits, per, *k_st[:3], *v_st[:3],
+            float(scale))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mma = uses_tensor_cores(q.dtype, hd)
+    if mma:
+        err = lib.paged_attention_mma_launch(*args, sms, stream)
+    else:
+        err = lib.paged_attention_launch(_DTYPES[q.dtype], *args, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
     cuda_build.count_launch("paged_attention")
+    cuda_build.count_launch(MMA_LAUNCHES if mma else CUDA_CORE_LAUNCHES)
     return out
 
 
 def _lib():
     lib = cuda_build.load("paged_attention")
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:
+    if lib.paged_attention_launch.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       i64, i64, i64, i64, i64, i64, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+        common = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                  i64, i64, i64, i64, i64, i64, ctypes.c_float]
+        lib.paged_attention_mma_launch.argtypes = common + [i, p]
+        lib.paged_attention_mma_launch.restype = ctypes.c_int
+        lib.paged_attention_launch.argtypes = [i] + common + [p]
+        lib.paged_attention_launch.restype = ctypes.c_int
     return lib
-

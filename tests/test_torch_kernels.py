@@ -23,14 +23,23 @@ from repro_torch.configs.base import RWKV6, get_config, list_configs
 from repro_torch.kernels import cuda_build, ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.paged_attention import (MAX_G,
+from repro_torch.kernels.paged_attention import (MAX_SPLITS,
+                                                 MIN_LIVE_SHARE,
+                                                 MIN_SPLIT_TOKENS,
+                                                 CUDA_CORE_LAUNCHES,
+                                                 MMA_LAUNCHES,
+                                                 MMA_MAX_HEAD_DIM,
+                                                 SPLIT_TOKENS_PER_HEAD,
                                                  paged_attention_cuda,
                                                  paged_attention_plain,
-                                                 split_plan)
+                                                 split_plan,
+                                                 uses_tensor_cores)
 
 # f32 on the CPU: both sides sum the same products in different orders
 PAGED_TOL = 1e-5
 FLASH_TOL = 2e-5
+#: granite-34b's attention heads over its kv heads (MQA)
+GRANITE_HEADS = (48, 1)
 
 # one compile per shape instead of one per eager op
 _xla = jax.jit(paged_attention_xla, static_argnames=("scale_override",))
@@ -204,107 +213,169 @@ def test_flash_ragged_tail_is_finite_where_the_pallas_kernel_is_not():
     np.testing.assert_allclose(got, oracle, rtol=FLASH_TOL, atol=FLASH_TOL)
 
 
-@pytest.mark.parametrize("B,KV,MP", [
-    (8, 2, 16),      # the decode batch: one page per split, 256 blocks
-    (1, 2, 16),      # B = 1 at max_seq_len 512
-    (16, 2, 16),     # two pages per split
-    (16, 2, 13),     # MP not a multiple of the split count
-    (3, 1, 1),       # MP = 1
-    (64, 8, 64),     # a grid full without splitting
-    (1, 1, 512),     # a long page table
-    (5, 3, 7),
-])
-def test_split_plan_covers_each_column_once(B, KV, MP):
-    """Split s takes columns [s * per, min((s + 1) * per, MP)), as the
-    kernel reads them: every column once, no split without a column."""
-    n, per = split_plan(B, KV, MP)
-    cols = [c for s in range(n) for c in range(s * per, min((s + 1) * per,
+def _columns(n, per, MP):
+    """The page-table columns of splits 0..n-1, in order."""
+    return [c for s in range(n) for c in range(s * per, min((s + 1) * per,
                                                             MP))]
-    assert cols == list(range(MP))
+
+
+def _live_splits(length, per, T, MP):
+    """A row's live splits: the kernels' ceil(min(n, MP T) / (per T))."""
+    return -(-min(length, MP * T) // (per * T)) if length > 0 else 0
+
+
+@pytest.mark.parametrize("B,KV,MP,T,G", [
+    (8, 2, 16, 32, 6),       # qwen2-1.5b's decode batch: one page a split
+    (1, 2, 16, 32, 6),       # B = 1 at max_seq_len 512
+    (32, 1, 256, 32, 48),    # granite-34b's decode batch
+    (32, 8, 256, 32, 12),    # command-r-plus-104b's heads at the same
+    (16, 2, 13, 8, 6),       # MP not a multiple of the pages a split
+    (3, 1, 1, 4, 2),         # MP = 1
+    (1, 1, 4096, 16, 4),     # a table past MAX_SPLITS columns a split
+    (5, 3, 7, 4, 3),
+])
+def test_split_plan_covers_each_column_once(B, KV, MP, T, G):
+    """Split s takes columns [s * per, min((s + 1) * per, MP)), as both
+    kernels read them: every column once, no split without a column, at
+    most MAX_SPLITS a row; the pages a split holds come from T and G, not
+    from the table's width, once the table is wide enough to give every
+    SM a split; a table too small for that takes one page a split."""
+    n, per = split_plan(B, KV, MP, T=T, G=G)
+    assert _columns(n, per, MP) == list(range(MP))
     assert n >= 1 and per >= 1 and (n - 1) * per < MP
-    if B * KV * MP <= 132:       # spreading over the SMs wins: 1 page each
-        assert (n, per) == (MP, 1)
+    assert n <= MAX_SPLITS
+    wide, wider = (split_plan(B, KV, m, T=T, G=G)[1] for m in (MP, 2 * MP))
+    if B * KV * MP >= MIN_LIVE_SHARE * 132 * per and MP <= MAX_SPLITS:
+        assert wide == wider == -(-max(SPLIT_TOKENS_PER_HEAD * G,
+                                       MIN_SPLIT_TOKENS) // T)
+    if B * KV * MP < MIN_LIVE_SHARE * 132:
+        assert per == max(1, -(-MP // MAX_SPLITS))
 
 
 @pytest.mark.parametrize("sm_count", [132, 114, 8])
-@pytest.mark.parametrize("B,KV,G,MP", [
-    (8, 2, 6, 16), (8, 2, 16, 16), (1, 4, 24, 13), (16, 2, 6, 1),
-    (3, 1, 9, 64),
+@pytest.mark.parametrize("B,KV,G,MP,T", [
+    (8, 2, 6, 16, 32), (8, 2, 16, 16, 32), (1, 4, 24, 13, 8),
+    (16, 2, 6, 1, 32), (32, 1, 48, 256, 32),
 ])
 def test_split_plan_follows_the_card_and_the_head_chunks(sm_count, B, KV,
-                                                         G, MP):
-    """The plan covers every column once on any SM count, and counts the
-    kernel's head chunks (MAX_G query heads a block) in its grid: more
-    chunks or fewer SMs never ask for more splits."""
-    n, per = split_plan(B, KV, MP, G=G, sm_count=sm_count)
-    cols = [c for s in range(n) for c in range(s * per, min((s + 1) * per,
-                                                            MP))]
-    assert cols == list(range(MP))
-    assert (n, per) == split_plan(B, KV * -(-G // MAX_G), MP,
-                                  sm_count=sm_count)
-    n_wide, _ = split_plan(B, KV, MP, G=1, sm_count=sm_count)
-    n_big, _ = split_plan(B, KV, MP, G=G, sm_count=2 * sm_count)
-    assert n <= n_wide and n <= n_big
-    if B * KV * -(-G // MAX_G) * MP <= sm_count:
-        assert (n, per) == (MP, 1)
+                                                         G, MP, T):
+    """The plan covers every column once on any SM count; fewer SMs never
+    ask for smaller splits, more query heads a kv head (more partial bytes
+    a split writes) never for smaller ones, and a split never holds more
+    pages than its head count and MIN_SPLIT_TOKENS ask for."""
+    n, per = split_plan(B, KV, MP, T=T, G=G, sm_count=sm_count)
+    assert _columns(n, per, MP) == list(range(MP))
+    _, per_big = split_plan(B, KV, MP, T=T, G=G, sm_count=2 * sm_count)
+    _, per_wide = split_plan(B, KV, MP, T=T, G=2 * G, sm_count=sm_count)
+    assert per_big <= per <= per_wide
+    assert per <= max(1, -(-max(SPLIT_TOKENS_PER_HEAD * G,
+                                MIN_SPLIT_TOKENS) // T))
 
 
-def _split_partials(q, kp, vp, table, lengths, n, per):
-    """The split kernel's arithmetic, in f32: per split s and head, the
-    max m, the sum l of e^(s - m) and acc = sum e^(s - m) v over the live
-    tokens of its columns; m = -inf, l = 0, acc = 0 where none is live."""
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_plan_at_granites_decode_shape(seed):
+    """granite-34b's decode batch (B 32, 48 query heads on one kv head,
+    MP 256 columns of 32-token pages, rows of 17-50 live pages): the live
+    splits cover every live page of every row once, and there are more of
+    them than the card has SMs (each a block's work for all 48 heads of the
+    kv head, one head chunk)."""
+    B, KV, G, MP, T = 32, 1, 48, 256, 32
+    n, per = split_plan(B, KV, MP, T=T, G=G)
+    lengths = np.random.default_rng(seed).integers(16 * T + 1, 50 * T + 1,
+                                                   B)
+    live = 0
+    for length in lengths:
+        k = _live_splits(int(length), per, T, MP)
+        assert k <= n
+        pages = -(-int(length) // T)
+        assert _columns(k, per, MP)[:pages] == list(range(pages))
+        assert len(_columns(k, per, MP)) - pages < per  # the last, ragged
+        live += k
+    assert live * KV * -(-G // 64) >= 132
+
+
+def _split_partials(q, kp, vp, table, lengths, per):
+    """The split kernels' arithmetic, in f32.  Row b's live split s (s <
+    ceil(min(n_b, MP T) / (per T))) takes its tokens [s per T, min((s + 1)
+    per T, n_b)); per split and head: the max m, the sum l of e^(s - m)
+    and acc = sum e^(s - m) v over the live tokens (m = -inf, l = 0,
+    acc = 0 where none is live: all its pages unmapped).  The tensor-core
+    kernel splits each 32-token tile's keys between two warps and merges
+    their (m, l, acc) at the end; so does this mirror, at the tile's
+    middle.  A split past a row's live ones is NaN: no kernel writes it,
+    and the combine must not read it."""
     B, H, hd = q.shape
     _, T, KV, _ = kp.shape
     MP = table.shape[1]
+    n = -(-MP // per)
     qg = q.reshape(B, KV, H // KV, hd)
-    ms, ls, accs = [], [], []
-    for s in range(n):
-        c0, c1 = s * per, min((s + 1) * per, MP)
-        cols = table[:, c0:c1]
-        k = kp[cols.clamp(min=0).long()].reshape(B, -1, KV, hd)
-        v = vp[cols.clamp(min=0).long()].reshape(B, -1, KV, hd)
-        pos = torch.arange(c0 * T, c1 * T)[None, :]
-        valid = (pos < lengths[:, None]) & \
-            torch.repeat_interleave(cols >= 0, T, dim=1)
-        sc = torch.einsum("bkgh,bskh->bkgs", qg, k) / np.sqrt(hd)
-        sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
-        m = sc.amax(-1)
-        e = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0)[..., None])
-        ms.append(m.reshape(B, H))
-        ls.append(e.sum(-1).reshape(B, H))
-        accs.append(torch.einsum("bkgs,bskh->bkgh", e, v).reshape(B, H, hd))
-    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+    m = torch.full((B, H, n), float("nan"))
+    l = torch.full((B, H, n), float("nan"))
+    acc = torch.full((B, H, n, hd), float("nan"))
+
+    def part(b, pos):
+        cols = table[b, pos // T]
+        k = kp[cols.clamp(min=0).long(), pos % T]        # [tokens, KV, hd]
+        v = vp[cols.clamp(min=0).long(), pos % T]
+        sc = torch.einsum("kgh,tkh->kgt", qg[b], k) / np.sqrt(hd)
+        sc = sc.masked_fill(~(cols >= 0)[None, None, :], float("-inf"))
+        mm = sc.amax(-1) if sc.shape[-1] else \
+            torch.full(sc.shape[:-1], float("-inf"))
+        e = torch.exp(sc - torch.where(torch.isfinite(mm), mm, 0.0)[..., None])
+        return mm, e.sum(-1), torch.einsum("kgt,tkh->kgh", e, v)
+
+    for b in range(B):
+        n_b = int(lengths[b])
+        for s in range(_live_splits(n_b, per, T, MP)):
+            end = min((s + 1) * per * T, n_b, MP * T)
+            pos = torch.arange(s * per * T, end)
+            halves = [part(b, pos[(pos % 32 < 16) == first])
+                      for first in (True, False)]
+            mm = torch.maximum(halves[0][0], halves[1][0])
+            base = torch.where(torch.isfinite(mm), mm, 0.0)
+            w = [torch.where(torch.isfinite(h[0]), torch.exp(h[0] - base),
+                             0.0) for h in halves]
+            m[b, :, s] = mm.reshape(H)
+            l[b, :, s] = (halves[0][1] * w[0] + halves[1][1] * w[1]).reshape(H)
+            acc[b, :, s] = (halves[0][2] * w[0][..., None] + halves[1][2]
+                            * w[1][..., None]).reshape(H, hd)
+    return m, l, acc
 
 
-def _combine(m, l, acc):
-    """The combine kernel: log-sum-exp over splits, empty splits skipped,
-    zeros where every split is empty."""
+def _combine(m, l, acc, lengths, per, T, MP):
+    """The combine kernel: log-sum-exp over row b's live splits only,
+    splits with no live token skipped, zeros where every split is
+    empty."""
+    n = torch.tensor([_live_splits(int(x), per, T, MP) for x in lengths])
+    live = torch.arange(m.shape[-1])[None, None, :] < n[:, None, None]
+    m = torch.where(live, m, float("-inf"))
     M = m.amax(-1, keepdim=True)
     w = torch.where(torch.isfinite(m), torch.exp(m - M), 0.0)
-    L = (l * w).sum(-1, keepdim=True)
-    out = (acc * w[..., None]).sum(-2)
+    L = torch.where(w > 0, l * w, 0.0).sum(-1, keepdim=True)
+    out = torch.where(w[..., None] > 0, acc * w[..., None], 0.0).sum(-2)
     return torch.where(L > 0, out / torch.where(L > 0, L, 1.0), 0.0)
 
 
 @pytest.mark.parametrize("B,KV,MP,lengths", [
-    # 8 splits of 2 pages: rows ending mid-split (5, 9, 19), a length-0 row,
-    # trailing splits with no live token, a row with every page live
+    # rows ending mid-split (5, 9, 19), a length-0 row, rows with every
+    # page live
     (16, 2, 16, [5, 0, 9, 64, 19, 1, 0, 33, 64, 2, 40, 0, 8, 17, 3, 60]),
-    # 7 splits of 2 pages over 13 columns: the last split has one
+    # MP = 13 columns: with 2 or 3 pages a split the last split is short
     (16, 2, 13, [52, 0, 37, 5] * 4),
-    # one split of many pages (a large batch fills the grid alone)
+    # a large batch of short and empty rows
     (40, 4, 9, [0, 36, 13] * 13 + [7]),
-    # one page per split, as on the decode path
+    # lengths past the table's tokens (MP T = 64) count its tokens only
     (8, 2, 16, [3, 64, 0, 21, 50, 7, 1, 30]),
 ])
 def test_split_combine_mirror_matches_plain(B, KV, MP, lengths):
-    """Partials per split, merged by log-sum-exp, give the plain version's
-    output; unmapped pages (-1, mid-row too) hold garbage that must not
-    leak."""
+    """Partials per live split, merged by log-sum-exp, give the plain
+    version's output, at the plan's pages a split and at 2 and 3;
+    unmapped pages (-1, mid-row too) hold garbage that must not leak, and
+    the splits past a row's live ones (NaN here) are never read."""
     T, G, hd = 4, 3, 16
     rng = np.random.default_rng(B + MP)
     lengths = np.asarray(lengths, np.int32)
-    pages = -(-lengths // T)
+    pages = np.minimum(-(-lengths // T), MP)
     P = int(pages.sum()) + 2
     table = np.full((B, MP), -1, np.int32)
     perm = iter(rng.permutation(P - 2))
@@ -317,15 +388,36 @@ def test_split_combine_mirror_matches_plain(B, KV, MP, lengths):
         B, B, KV * G, KV, hd, P, T, lengths, table))
     kp[-2:] = 1e4
     vp[-2:] = 1e4
-    n, per = split_plan(B, KV, MP)
-    m, l, acc = _split_partials(q, kp, vp, table, lens, n, per)
-    got = _combine(m, l, acc)
     want = paged_attention_plain(q, kp, vp, table, lens)
-    torch.testing.assert_close(got, want, rtol=PAGED_TOL, atol=PAGED_TOL)
-    dead = torch.isinf(m)
-    assert dead.any() and (l[dead] == 0).all() and (acc[dead] == 0).all()
-    for b in np.nonzero(lengths == 0)[0]:
-        assert torch.equal(got[b], torch.zeros_like(got[b]))
+    _, plan_per = split_plan(B, KV, MP, T=T, G=G)
+    for per in sorted({plan_per, 2, 3}):
+        m, l, acc = _split_partials(q, kp, vp, table, lens, per)
+        got = _combine(m, l, acc, lengths, per, T, MP)
+        torch.testing.assert_close(got, want, rtol=PAGED_TOL, atol=PAGED_TOL)
+        written = ~torch.isnan(m)
+        dead = written & torch.isinf(m)
+        assert (l[dead] == 0).all() and (acc[dead] == 0).all()
+        assert written.sum(-1).tolist() == [
+            [_live_splits(int(n), per, T, MP)] * (KV * G) for n in lengths]
+        for b in np.nonzero(lengths == 0)[0]:
+            assert torch.equal(got[b], torch.zeros_like(got[b]))
+    # an unmapped page mid-row leaves a split with no live token at 1
+    m, _, _ = _split_partials(q, kp, vp, table, lens, 1)
+    holed = [b for b in range(B) if pages[b] > 2 and b % 3 == 0]
+    assert torch.isinf(m[holed, :, 1]).all()
+
+
+@pytest.mark.parametrize("dtype,hd,mma", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 120, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 136, False),
+    (torch.bfloat16, 256, False), (torch.float32, 64, False),
+    (torch.float32, 128, False)])
+def test_paged_route_follows_dtype_and_head_dim(dtype, hd, mma):
+    """bf16 up to MMA_MAX_HEAD_DIM runs on tensor cores; f32 (TF32 there)
+    and wider bf16 heads on CUDA cores: a rule on the inputs, not on a
+    config."""
+    assert uses_tensor_cores(dtype, hd) is mma
+    assert MMA_MAX_HEAD_DIM == 128
 
 
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
@@ -420,9 +512,10 @@ def test_swept_head_dims_are_the_rule():
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernels_match_plain(cuda_device, dtype, tol, hd):
     """On the card: both kernels against their plain versions (bf16 is
-    looser: the paged plain version rounds p to bf16 and the kernel does
-    not; the flash kernel rounds p to bf16 and its plain version does
-    not), at every head_dim the rule admits: paged at B 3, 2 KV heads of
+    looser: both round p to bf16, the paged plain version after the
+    softmax's division and the kernels before it; the flash kernel rounds
+    p to bf16 and its plain version does not), at every head_dim the rule
+    admits: paged at B 3, 2 KV heads of
     2 query heads, T 8, MP 5 on a row of length 0, a row ending mid-page
     before three unmapped columns of garbage pages and a row using every
     column; flash causal at S 70 (a ragged tail).  In the hd 128 case,
@@ -430,8 +523,11 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol, hd):
     split plan's edges (rows ending inside a split of
     two pages, trailing empty splits, every page live, MP = 13 over 7
     splits, B = 1 at 16 pages), at head_dim 120 on length 0, lengths on
-    a page boundary and unmapped pages holding garbage, and at granite's
-    48 over 1 and command-r-plus's 96 over 8 heads; flash on S off its
+    a page boundary and unmapped pages holding garbage, at granite's
+    48 over 1 and command-r-plus's 96 over 8 heads, and at both at their
+    decode batch (B 32, T 32, MP 256, rows of 512-1,600 tokens: granite's
+    MQA is what the tensor-core kernel is for), each counted under its
+    route (bf16 on tensor cores, f32 on CUDA cores); flash on S off its
     tiles, windows across tile edges, B = 2, each head_dim route (120 in
     the 128 instantiation), a non-causal case and h2o-danube-3-4b's
     prefill (32 over 8 heads, head_dim 120, window 4096) at S 256 and
@@ -500,6 +596,31 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, tol, hd):
                                                lens).float(),
             rtol=tol, atol=tol)
         assert not got[lens == 0].any()
+    # granite-34b's MQA decode batch (48 heads on one kv head) and
+    # command-r-plus-104b's 12 heads a kv head: B 32, T 32, MP 256, rows of
+    # 512-1,600 tokens; bf16 takes the tensor-core kernel, f32 the other
+    route = MMA_LAUNCHES if dtype == torch.bfloat16 else CUDA_CORE_LAUNCHES
+    for seed, (H, KV) in enumerate((GRANITE_HEADS, (96, 8))):
+        rng = np.random.default_rng(seed)
+        lengths = rng.integers(512, 1601, 32)
+        pages = -(-lengths // 32)
+        table = np.full((32, 256), -1, np.int32)
+        perm = iter(rng.permutation(int(pages.sum())))
+        for b in range(32):
+            for i in range(pages[b]):
+                table[b, i] = next(perm)
+        q, kp, vp, table, lens = (t.to(cuda_device) for t in _torch(
+            *_paged_inputs(seed, 32, H, KV, 128, int(pages.sum()) + 2, 32,
+                           lengths, table)))
+        kp[-2:] = 1e4                      # never mapped: must not leak
+        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+        before = cuda_build.launch_counts().get(route, 0)
+        got = paged_attention_cuda(q, kp, vp, table, lens)
+        assert cuda_build.launch_counts().get(route, 0) == before + 1
+        torch.testing.assert_close(
+            got.float(), paged_attention_plain(q, kp, vp, table,
+                                               lens).float(),
+            rtol=tol, atol=tol)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     for B, S, H, KV, hd, window, causal in (
             (1, 100, 12, 2, 128, None, True), (1, 100, 12, 2, 128, 24, True),
