@@ -3,15 +3,16 @@
 After the window, a sample of the requests the engine finished is drawn
 from the seed, always with the longest of them in it, until it holds
 ``check.served_tokens_at_least`` served tokens.  For each, the
-reference runs once over the prompt and the served tokens (the logits at
+configuration's plain reference (the ``Reference`` of the architecture
+file its ``reference`` names, ``bench/reference/__init__.py``) runs once over the prompt and the served tokens (the logits at
 the prompt's last position predict the first served token, and so on) and
 reads, at every served token, how far that token's logit lies below the
 reference's best there.  Two numbers are compared, each with the limit the
 configuration file gives it (``check.at_most``): the widest such gap over
 the sample, and their mean over every served token of it.  Each limit lies
-between what sound runs of the program read and what the control
-(``bench.reference`` in float8, put in the program's place and judged by
-the same comparison: ``bench/control.py``) reads, as ``PERF.md`` records.
+between what sound runs of the program read and what the control (the
+same ``Reference`` in float8, put in the program's place and judged by the
+same comparison: ``bench/control.py``) reads, as ``PERF.md`` records.
 A sample with fewer served tokens than ``check.served_tokens_at_least``
 (the engine finished too few requests) fails: too few to judge.
 """
@@ -22,8 +23,6 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from bench.reference.model import Reference
 
 
 def draw_sample(finished: Sequence[Tuple[int, np.ndarray, List[int]]],
@@ -69,20 +68,21 @@ def gaps(logits: torch.Tensor, tokens: Sequence[int]) -> np.ndarray:
     return (logits.max(dim=1).values - chosen).cpu().numpy()
 
 
-def judge(model: dict, params: Dict, sample, *,
+def judge(plain: type, model: dict, params: Dict, sample, *,
           control: bool = False) -> Dict[str, object]:
-    """The reference over ``sample``: the widest and mean gap of the served
-    tokens, and with ``control`` also those of the tokens the float8
-    control puts first at the same positions."""
+    """``plain`` (an architecture file's ``Reference``) over
+    ``sample``: the widest and mean gap of the served tokens, and with
+    ``control`` also those of the tokens the float8 control puts first at
+    the same positions."""
     device = params["embed"]["table"].device
     seqs, positions = sequences(sample, device)
-    ref = Reference(model, params).logits(seqs, positions)
+    ref = plain(model, params).logits(seqs, positions)
     served = [gaps(lg, s) for lg, (_, _, s) in zip(ref, sample)]
     out = {"tokens": int(sum(len(g) for g in served)),
            **_widest_and_mean(served),
            "per_request": [float(g.max()) for g in served if len(g)]}
     if control:
-        low = Reference(model, params, quant="fp8").logits(seqs, positions)
+        low = plain(model, params, quant="fp8").logits(seqs, positions)
         cg = [gaps(r, lg.argmax(dim=1).tolist()) for r, lg in zip(ref, low)]
         out["control"] = _widest_and_mean(cg)
     return out

@@ -5,8 +5,9 @@
 One run of the cell (as ``bench/run.py`` makes it, for a short window)
 judged twice against the float32 reference: by the tokens
 the program served (the lower readings of the widest and the mean gap)
-and by the tokens the float8 control (``bench.reference`` with
-``quant="fp8"``) puts first at the same positions (the upper readings).
+and by the tokens the float8 control (the ``Reference`` of the
+configuration's architecture file with ``quant="fp8"``) puts first at the
+same positions (the upper readings).
 The control goes through the same verdict, with the cell's limits, as
 the program (``control_correct``); it exits with 1 if the control came out
 correct, or the program did not.  Run it once a seed, each in its own

@@ -8,21 +8,20 @@ from __future__ import annotations
 
 import dataclasses
 
-#: configuration keys that name the model's shape, checked against the
-#: program's registered config of ``port_config``
-MODEL_KEYS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-              "vocab_size", "head_dim", "qk_norm", "qkv_bias", "act",
-              "rope_theta", "norm_eps", "block_type", "dtype",
-              "sliding_window")
-
 
 def arch_config(config: dict):
     """The program's ``ArchConfig`` for ``config``: its registered config
-    with the file's model keys put in, so the file is what runs."""
-    from repro_torch.configs.base import get_config
-    model = {k: config["model"][k] for k in MODEL_KEYS
-             if k in config["model"]}
-    return dataclasses.replace(get_config(config["port_config"]), **model)
+    with every key of the file's ``model`` section put in, so the file is
+    what runs.  A key that is no field of ``ArchConfig`` raises
+    ``KeyError``, naming it."""
+    from repro_torch.configs.base import ArchConfig, get_config
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    unknown = sorted(set(config["model"]) - fields)
+    if unknown:
+        raise KeyError(f"{config.get('name')!r}: model keys {unknown} are no "
+                       f"fields of the program's ArchConfig")
+    return dataclasses.replace(get_config(config["port_config"]),
+                               **config["model"])
 
 
 def build(config: dict, weights_seed: int, device: str):

@@ -10,16 +10,26 @@ A traced run hands each reader one record (``bench.run.execute``):
 * ``window_s`` and ``tokens``, the window's seconds and output tokens;
 * ``trace``: ``None``, or the profiled rounds' ``busy_s``, ``window_s``,
   device seconds per kernel name (``kernels``) and those rounds;
-* ``model`` and ``engine``: the configuration's sections.
+* ``model`` and ``engine``: the configuration's sections;
+* ``reference``: the path of the configuration's architecture file, whose
+  counts the count-based readers take (``architecture``).
 
 A reader returns ``None`` where it finds nothing to read.
 """
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import List, Optional
 
+from bench import manifest
+
 LMB_LAYERS = ("decode_view", "commit_decode")
+
+
+def architecture(rec: dict) -> ModuleType:
+    """The run's architecture file (``bench/reference/__init__.py``)."""
+    return manifest.architecture(rec["reference"])
 
 
 def window_rounds(rec: dict) -> List[dict]:

@@ -23,6 +23,9 @@ and the stored keys and values rounded to float8 e4m3 (weights per output
 channel, activations per token, keys and values per token and head, each
 scaled to the format's largest finite value 448), the lower precision a
 deployment of a bfloat16 model would try next.
+
+The counts (``bench/reference/__init__.py``) are ``bench.counts``'s dense
+arithmetic: every layer the same, attending its whole context.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from bench import counts
 
 FP8_MAX = 448.0
 
@@ -174,3 +179,19 @@ class Reference:
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = flags
+
+
+# ------------------------------------------------------------------ counts
+prefill_flops = counts.prefill_flops
+decode_flops = counts.decode_flops
+
+
+def paged_least_s(model: dict, lengths: Sequence[int],
+                  max_pages: int) -> float:
+    return model["num_layers"] * counts.least_seconds(
+        *counts.paged_attention_call(model, lengths, max_pages))
+
+
+def flash_least_s(model: dict, S: int) -> float:
+    return model["num_layers"] * counts.least_seconds(
+        *counts.flash_attention_call(model, S))

@@ -7,7 +7,8 @@ configuration file and a traffic mix; this builds the program's serving
 engine (``repro_torch``) with weights drawn from the seed on the card,
 warms it up on the mix (``bench.traffic``, ``bench.driver``), measures for
 ``--seconds``, checks the served tokens against the plain reference
-(``bench.check``), and prints one JSON object: with ``--trace 0`` the
+(``bench.check``, with the ``Reference`` of the architecture file the
+configuration names), and prints one JSON object: with ``--trace 0`` the
 cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics (the
 layers timed from outside, ``bench.layers``; a few rounds after the window
 traced with ``torch.profiler``, ``bench.devtrace``).  The set-up time runs
@@ -84,11 +85,14 @@ def execute(config: dict, traffic: dict, *, seed: int, seconds: float,
     import torch
 
     from bench import check, deploy, devtrace, driver, layers, tails
+    from bench import manifest
     from bench import traffic as mix
     from bench import weights
 
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    arch_path = manifest.ROOT / config["reference"]
+    arch = manifest.architecture(arch_path)
     engine, system, params, model = deploy.build(config, seed, device)
     abstract = model.abstract_params()
     gib = (lambda: f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
@@ -164,6 +168,7 @@ def execute(config: dict, traffic: dict, *, seed: int, seconds: float,
     metrics = {}
     if trace:
         record = {"model": config["model"], "engine": config["engine"],
+                  "reference": str(arch_path),
                   "window_s": run.end - run.start,
                   "tokens": summ["tokens"],
                   "rounds": recorder.rounds,
@@ -205,8 +210,8 @@ def execute(config: dict, traffic: dict, *, seed: int, seconds: float,
     t_ref = time.monotonic()
     ref_params = weights.make(abstract, seed, device,
                               float(config["init_std"]))
-    judged = check.judge(config["model"], ref_params, sample,
-                         control=control)
+    judged = check.judge(arch.Reference, config["model"], ref_params,
+                         sample, control=control)
     del ref_params
     log(f"reference: {time.monotonic() - t_ref:.1f} s")
     ok, compared = check.verdict(judged, config["check"])

@@ -32,10 +32,31 @@ def test_no_file_imports_jax_or_the_jax_package():
     assert "repro_torch" not in run.FORBIDDEN
 
 
+def _bench_imports(path):
+    """The benchmark's modules ``path`` imports, by full name."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name for a in node.names
+                    if a.name.split(".")[0] == "bench"}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module == "bench":
+                out |= {"bench." + a.name for a in node.names}
+            elif node.module.split(".")[0] == "bench":
+                out.add(node.module)
+        elif isinstance(node, ast.ImportFrom):
+            out.add("relative import")
+    return out
+
+
 def test_the_reference_imports_nothing_of_the_program():
+    """An architecture file takes nothing of the program, and of the
+    benchmark only the yardstick's counts, which import neither."""
     for p in (manifest.BENCH / "reference").glob("*.py"):
-        tops = _top_imports(p)
-        assert "repro_torch" not in tops and "bench" not in tops, p
+        assert "repro_torch" not in _top_imports(p), p
+        assert _bench_imports(p) <= {"bench.counts"}, p
+    assert not _top_imports(manifest.BENCH / "counts.py") & {
+        "repro_torch", "bench"}
 
 
 def test_nothing_reads_the_old_benchmarks():
