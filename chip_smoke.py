@@ -39,7 +39,17 @@ Phases (any failure raises and the script exits non-zero):
      512-1,600 tokens in 32-token pages, MP 256), its own ``kernels`` row,
      over ``GRANITE_TIMED_LAYERS`` layer views of one pool taken in turn,
      so each call reads its K/V from HBM as a decode step's layers do, and
-     checked to run on tensor cores.  Paged and flash are also checked at
+     checked to run on tensor cores; the paged kernel at
+     k-exaone-236b-a23b's decode batch (``EXAONE_DECODE``: B 32, 64 heads
+     on 8 kv heads, rows of 1,024-2,368 tokens), a full layer (window 0)
+     and a windowed one (128), held within a tenth of the output's mean
+     magnitude (a page left out of a row must miss that), and its held
+     experts' CUDA kernels (``EXAONE_EXPERTS``: 8 of 128 experts, top-8)
+     at the decode batch and a 1,536-token prompt, beside the same sums
+     through ``torch._grouped_mm`` (``library_ms``), each checked against
+     its plain version and given a ``kernels`` row whose launches are
+     phase 4j's (``python3 chip_smoke.py --exaone`` runs these rows and
+     phase 4j alone).  Paged and flash are also checked at
      dbrx-132b's
      shapes (48 heads over 8 KV heads), granite-34b's (48 over 1),
      chameleon-34b's (64 over 8) and command-r-plus-104b's (96 over 8),
@@ -156,6 +166,10 @@ Phases (any failure raises and the script exits non-zero):
      width, 16 of 64 layers, 56.62 GB; the 256,000-row tied readout,
      LMB-paged), 4i mixtral-8x22b (full width, 10 of 56 layers, 50.49 GB;
      MoE on the dense slot path, the MoE layer timed apart);
+  4j. k-exaone-236b-a23b at full width, its dense layer and one LLLG
+     period, 8 of 128 experts held, like phase 3: LMB-paged, the paged
+     kernel 5 x rounds on tensor cores (4 x rounds windowed), flash 5 x
+     prompts, the expert kernels 4 x (prompts + rounds);
   5. reference: each reduced config in f32 (qwen2-1.5b, rwkv6-7b,
      dbrx-132b, mixtral-8x22b, hymba-1.5b, granite-34b, h2o-danube-3-4b,
      command-r-plus-104b, chameleon-34b, and h2o-danube-3-4b at its
@@ -283,7 +297,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan",
+                  "expert_ffn")
 #: the kernels each served path launches: the LMB-paged path (qwen2-1.5b,
 #: dbrx-132b; hymba-1.5b prefills through flash too) and rwkv6-7b's
 PAGED_KERNELS = ("paged_attention", "flash_attention")
@@ -307,6 +322,21 @@ GRANITE_ATTN = (48, 1, 128)
 #: views of one pool phase 2 times it over
 GRANITE_DECODE = (32, 32, 256, 512, 1600)
 GRANITE_TIMED_LAYERS = 8
+#: k-exaone-236b-a23b's attention (H, KV, hd) and window, its decode batch
+#: in the doc-chat cell (B, T, MP, shortest and longest row), and its
+#: expert layer on one chip (d_model, d_ff, experts, top_k, held) with
+#: the prompt length its prefill row times
+EXAONE_ATTN = (64, 8, 128)
+EXAONE_WINDOW = 128
+EXAONE_DECODE = (32, 32, 128, 1024, 2368)
+EXAONE_EXPERTS = (6144, 2048, 128, 8, 8)
+EXAONE_PROMPT = 1536
+#: its paged rows' tolerance, a share of the plain output's mean magnitude
+EXAONE_PAGED_TOL = 0.1
+#: phase 4j: k-exaone-236b-a23b served at full width, its dense layer and
+#: one LLLG period (every kind of layer once), 8 of 128 experts held
+EXAONE_SERVE_LAYERS = 5
+EXAONE_SERVE_HELD = 8
 CHAMELEON_ATTN = (64, 8, 128)
 COMMAND_R_ATTN = (96, 8, 128)
 #: phase 4e's one long request: prompt tokens (past the 4,096-token
@@ -741,7 +771,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                             device="cuda").to(torch.bfloat16)
                 for h in (h2h, h2kv, h2kv))
     granite = granite_paged_row(torch, pa)
-    return [
+    return [*exaone_rows(torch, pa),
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:106",
@@ -827,6 +857,185 @@ def granite_paged_row(torch, pa) -> dict:
             "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
                      f"live_tokens={live} bf16, plan {plan}, "
                      f"{GRANITE_TIMED_LAYERS} layer views in turn"}
+
+
+def exaone_rows(torch, pa) -> list:
+    """The ``kernels`` rows of k-exaone-236b-a23b, their launches taken
+    from phase 4j's serve run (``path`` k-exaone-236b-a23b, counted under
+    each row's ``counter``): the paged kernel at its decode batch over
+    ``GRANITE_TIMED_LAYERS`` layer views in turn, for a full layer and a
+    windowed one, and the held experts' kernels at the decode batch and at
+    ``EXAONE_PROMPT`` tokens, each checked against its plain version.  A
+    paged row is held within ``EXAONE_PAGED_TOL`` of the plain output's
+    mean magnitude (its bf16 rounding is a few thousandths of it), and the
+    plain output with one page of a row left out must miss that tolerance:
+    a dropped page cannot pass.  The expert rows' ``library_ms`` is the
+    same sums through ``torch._grouped_mm`` over the same sorted rows
+    (:func:`grouped_mm_route`), None where the card's torch lacks it or
+    refuses the shapes.  The bounds: a paged row reads each row's attended
+    K/V once; an expert row reads the weights of the held experts some
+    pair reaches, x and the output once, against the pairs' operations."""
+    import numpy as np
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import expert_ffn as ef
+    B, T, MP, lo, hi = EXAONE_DECODE
+    H, KV, hd = EXAONE_ATTN
+    lengths = [int(n) for n in np.random.default_rng(8).integers(lo, hi + 1,
+                                                                 B)]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, pool, table, lens = paged_pool(torch, gen, torch.bfloat16, B, H, KV,
+                                      hd, T, MP, lengths,
+                                      GRANITE_TIMED_LAYERS)
+    views = [(pool[:, i, 0], pool[:, i, 1])
+             for i in range(GRANITE_TIMED_LAYERS)]
+    rows = []
+    for window in (0, EXAONE_WINDOW):
+        name = (f"paged bfloat16 k-exaone-236b-a23b decode B={B} H={H} "
+                f"KV={KV} MP={MP} window={window}")
+        counts = cuda_build.launch_counts()
+        got = pa.paged_attention_cuda(q, *views[0], table, lens,
+                                      window=window)
+        after = cuda_build.launch_counts()
+        want = pa.paged_attention_plain(q, *views[0], table, lens,
+                                        window=window)
+        # row 0 a page shorter: its last 32 keys left out (a window
+        # slides back over the 32 before it)
+        short = lens.clone()
+        short[0] -= T
+        dropped = pa.paged_attention_plain(q, *views[0], table, short,
+                                           window=window)
+        tol = EXAONE_PAGED_TOL * float(want.float().abs().mean())
+        err = check(name, got, want, tol)
+        miss = max_err(dropped[:1], want[:1])
+        print(f"    a page dropped from row 0 reads {miss:.3e} "
+              f"(tol {tol:.3e})")
+        if not miss > tol:
+            raise AssertionError(f"{name}: a dropped page passes the "
+                                 f"tolerance ({miss} <= {tol})")
+        if (after.get(pa.MMA_LAUNCHES, 0) != counts.get(pa.MMA_LAUNCHES, 0)
+                + 1 or after.get(pa.WINDOWED_LAUNCHES, 0)
+                != counts.get(pa.WINDOWED_LAUNCHES, 0) + bool(window)):
+            raise AssertionError("k-exaone-236b-a23b's paged call: not on "
+                                 "tensor cores, or its window not counted")
+        live = sum(min(n, window) if window else n for n in lengths)
+        nbytes = (2 * live * KV * hd + 2 * B * H * hd) * 2 + 4 * B * MP \
+            + 4 * B
+        flops = 4 * live * H * hd
+        times = both_times(cycled(
+            lambda k, v: pa.paged_attention_cuda(q, k, v, table, lens,
+                                                 window=window), views))
+        plan = pa.split_plan(B, KV, pa.window_columns(MP, T, window), T=T,
+                             G=H // KV, sm_count=pa.sm_count(q.device))
+        rows.append({
+            "name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:106",
+            "counter": pa.WINDOWED_LAUNCHES if window else "paged_attention",
+            "launches": None, "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": time_ms(lambda: pa.paged_attention_plain(
+                q, *views[0], table, lens, window=window), iters=5,
+                repeats=3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms": times["device_ms"],
+            "path": "k-exaone-236b-a23b",
+            "shape": f"B={B} H={H} KV={KV} hd={hd} T={T} MP={MP} "
+                     f"window={window} attended_tokens={live} bf16, plan "
+                     f"{plan}, {GRANITE_TIMED_LAYERS} layer views in turn"})
+    del pool, views
+    D, Fd, E, K, held = EXAONE_EXPERTS
+    g = torch.Generator(device="cuda").manual_seed(9)
+    w = [torch.randn(shape, generator=g, device="cuda").mul_(
+        shape[1] ** -0.5).to(torch.bfloat16)
+        for shape in ((held, D, Fd), (held, D, Fd), (held, Fd, D))]
+    for tokens in (B, EXAONE_PROMPT):
+        x = torch.randn((tokens, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        ids = torch.rand((tokens, E), generator=g, device="cuda").topk(
+            K, dim=-1).indices
+        gates = torch.rand((tokens, K), generator=g, device="cuda")
+        args = (x, ids, gates, *w)
+        want = ef.expert_ffn_plain(*args)
+        got = ef.expert_ffn_cuda(*args)
+        err = max_err(got, want)
+        scale = float(want.abs().max())
+        print(f"  expert_ffn k-exaone-236b-a23b tokens={tokens} row tile "
+              f"{ef.row_tile(tokens)}: max_abs_err={err:.3e} of "
+              f"max|plain|={scale:.3g}")
+        if not err <= 2e-2 * scale:
+            raise AssertionError(f"expert_ffn at {tokens} tokens: {err}")
+        pairs = int((ids < held).sum())
+        reached = int(torch.unique(ids[ids < held]).numel())
+        nbytes = reached * 3 * D * Fd * 2 + tokens * D * 2 * 2
+        flops = 2 * 3 * D * Fd * pairs
+        times = both_times(lambda: ef.expert_ffn_cuda(*args))
+        rows.append({
+            "name": ef.LAUNCHES, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/expert_ffn.cu",
+            "replaces": "none (the capacity dispatch of models/moe.py)",
+            "counter": ef.LAUNCHES,
+            "launches": None, "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": time_ms(lambda: ef.expert_ffn_plain(*args), iters=5,
+                                repeats=3),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / PEAK_FLOPS["bfloat16"]
+                         else "operations"),
+            "library_ms": grouped_mm_route(torch, args, want),
+            "device_ms": times["device_ms"],
+            "path": "k-exaone-236b-a23b",
+            "shape": f"T={tokens} D={D} d_ff={Fd} {held} of {E} experts "
+                     f"held, top-{K}: {pairs} pairs on {reached} experts"})
+    return rows
+
+
+def grouped_mm_route(torch, args, want):
+    """Device ms of the expert sums through ``torch._grouped_mm`` over the
+    pairs sorted as ``expert_ffn_cuda`` sorts them (rows gathered by
+    token, both products of the first matrix in one grouped call against
+    the gate and up weights side by side, ``silu(g) u``, the second, each
+    row times its gate, summed per token by ``index_add_``), from a
+    replayed CUDA graph as the kernels' ``device_ms``; checked against the
+    plain version as the kernels are.  None, with the reason printed,
+    where the card's torch has no ``_grouped_mm`` or refuses the call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import expert_ffn as ef
+    x, ids, gates, wg, wu, wd = args
+    if not hasattr(torch, "_grouped_mm"):
+        print("    torch._grouped_mm: not in this torch")
+        return None
+    T, K = ids.shape
+    held, D, Fd = wg.shape
+    order, offs, _, _ = ef.sort_pairs(ids, held)
+    n = int(offs[-1])
+    pair = order[:n].long()
+    tok = pair // K
+    ends = offs[1:].contiguous()
+    gu = torch.cat([wg, wu], dim=2)
+    g = gates.reshape(-1)[pair].float()[:, None]
+
+    def run():
+        h = torch._grouped_mm(x[tok], gu, offs=ends)
+        h = F.silu(h[:, :Fd]) * h[:, Fd:]
+        y = torch._grouped_mm(h, wd, offs=ends)
+        return torch.zeros((T, D), dtype=torch.float32,
+                           device=x.device).index_add_(0, tok, y.float() * g)
+    try:
+        err = max_err(run(), want)
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as exc:
+        print(f"    torch._grouped_mm refused: {str(exc).splitlines()[0]}")
+        return None
+    try:
+        ms, how = graph_ms(run), "from a graph"
+    except RuntimeError as exc:
+        ms, how = time_ms(run), f"as issued (no graph: {str(exc)[:80]})"
+    print(f"    torch._grouped_mm: {ms:.4f} ms a call {how}, "
+          f"max_abs_err={err:.3e}")
+    if not err <= 2e-2 * float(want.abs().max()):
+        raise AssertionError(f"torch._grouped_mm route: {err}")
+    return ms
 
 
 def head_dim_sweep(torch, gen, dtype, tol: float) -> None:
@@ -2461,6 +2670,54 @@ def new_serve_phases(torch, lens, news) -> dict:
     return served
 
 
+def exaone_serve_phase(torch, lens, news) -> dict:
+    """Phase 4j: k-exaone-236b-a23b at full width, its dense layer and one
+    LLLG period (``EXAONE_SERVE_LAYERS``), ``EXAONE_SERVE_HELD`` of its 128
+    experts held as on one chip of the benchmark's cell, with phase 3's
+    engine and prompts (16-256 tokens: rows below, at and past the
+    128-token window).  It decodes on the LMB-paged path: the paged kernel
+    at every layer of every round, on tensor cores, windowed at the
+    windowed layers; flash at every layer of every prefill; the expert
+    kernels at every expert layer of every prefill and round.  Its counts
+    are the launches of the k-exaone-236b-a23b ``kernels`` rows."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import expert_ffn as ef
+    from repro_torch.kernels.paged_attention import (MMA_LAUNCHES,
+                                                     WINDOWED_LAUNCHES)
+    from repro_torch.models.attention import layer_attention
+    from repro_torch.serve import EngineConfig
+
+    cfg = dataclasses.replace(get_config("k-exaone-236b-a23b"),
+                              num_layers=EXAONE_SERVE_LAYERS,
+                              experts_held=EXAONE_SERVE_HELD)
+    ecfg = EngineConfig(decode_slots=8, page_tokens=32, max_seq_len=512,
+                        onboard_pages=16)
+    prompts = prompts_for(cfg, lens, news, 10)
+    res = serve_phase(torch, "phase 4j", cfg, prompts, ecfg)
+    check_paged(res, cfg)
+    L, rounds = cfg.num_layers, res["paged_rounds"]
+    windowed = sum(layer_attention(cfg, i)[0] is not None for i in range(L))
+    check_counts(res, cfg, {
+        "paged_attention": L * rounds, MMA_LAUNCHES: L * rounds,
+        WINDOWED_LAUNCHES: windowed * rounds,
+        "flash_attention": L * len(prompts),
+        ef.LAUNCHES: (L - cfg.dense_layers) * (len(prompts) + rounds)})
+    free_card(torch)
+    return {"k-exaone-236b-a23b": res}
+
+
+def row_launches(kernels, served) -> None:
+    """Each ``kernels`` row's launches by served path, counted under its
+    ``counter`` (its name where it gives none), and ``launches``, those
+    of its ``path``: None where no run served that path."""
+    for k in kernels:
+        c = k.get("counter", k["name"])
+        k["launches_by_path"] = {name: res["launches"][c]
+                                 for name, res in served.items()
+                                 if c in res["launches"]}
+        k["launches"] = k["launches_by_path"].get(k["path"])
+
+
 def seamless_phase(torch) -> dict:
     """Phase 4d: full-width seamless-m4t-large-v2 in bf16 through the
     port's ``Model`` (the engine refuses encoder-decoder models, as the
@@ -3645,6 +3902,9 @@ def main(argv=None) -> int:
     parser.add_argument("--dense-staged", metavar="ARCH[,ARCH]",
                         help="only build the kernels and run phase 3d for "
                         f"these configs (of {', '.join(DENSE_STAGED)})")
+    parser.add_argument("--exaone", action="store_true",
+                        help="only print phase 2's k-exaone-236b-a23b "
+                        "rows, their launches from phase 4j")
     parser.add_argument("--time-tree", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.time_tree is not None:
@@ -3670,6 +3930,14 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"phase 1: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; {host_line()}")
+    if args.exaone:
+        from repro_torch.kernels import paged_attention as pa
+        rows = exaone_rows(torch, pa)
+        lens, news, _, _ = workload()
+        row_launches(rows, exaone_serve_phase(torch, lens, news))
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        return 0
     t = time.monotonic()
     logs = cuda_build.build(KERNEL_SOURCES)
     print(f"  built {', '.join(KERNEL_SOURCES)} in "
@@ -3699,28 +3967,23 @@ def main(argv=None) -> int:
     reduced_wave_phase(torch)
     seamless = seamless_phase(torch)
     served.update(new_serve_phases(torch, lens, news))
+    served.update(exaone_serve_phase(torch, lens, news))
     swept = sweep_phase(torch, card)
 
     for k in kernels:
-        by_path = {name: res["launches"][k["name"]]
-                   for name, res in served.items()
-                   if k["name"] in res["launches"]}
-        if k["name"] in seamless["launches"]:
-            by_path["seamless-m4t-large-v2"] = \
-                seamless["launches"][k["name"]]
-        main_path = k.get("path") or (
+        k["path"] = k.get("path") or (
             "rwkv6-7b" if k["name"] in RWKV_KERNELS else "qwen2-1.5b")
-        k["path"] = main_path
-        k["launches"] = by_path.get(main_path, 0)
+    row_launches(kernels, {**served, "seamless-m4t-large-v2": seamless})
+    for k in kernels:
+        c, by_path = k.get("counter", k["name"]), k["launches_by_path"]
         by_path["qwen2-1.5b load sweep"] = \
-            swept["pipelined"]["launches"].get(k["name"], 0)
+            swept["pipelined"]["launches"].get(c, 0)
         for arch, res in prefilled.items():
             # three passes of 8 prompts through one staged engine: pass 1
             # eager, passes 2-3 counted through the graphs' replays
-            if k["name"] in res["staged"]["launches"]:
+            if c in res["staged"]["launches"]:
                 by_path[f"{arch} staged prefill (3p)"] = \
-                    res["staged"]["launches"][k["name"]]
-        k["launches_by_path"] = by_path
+                    res["staged"]["launches"][c]
     reference_phase(torch, "qwen2-1.5b", (5, 13, 20, 9, 17), 64)
     reference_phase(torch, "rwkv6-7b", (5, 13, 20, 9, 17, 70), 128)
     reference_phase(torch, "dbrx-132b", (5, 13, 20, 9, 17), 64)
@@ -3742,7 +4005,7 @@ def main(argv=None) -> int:
     dryrun_phase(torch, card)
     for k in kernels:
         k["launches_by_path"]["qwen2-1.5b training"] = \
-            trained["launches"].get(k["name"], 0)
+            trained["launches"].get(k.get("counter", k["name"]), 0)
 
     for name, res in served.items():
         print(f"serve {name}: {res['tokens_per_s']:.1f} tokens/s, mean TTFT "

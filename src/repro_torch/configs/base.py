@@ -69,11 +69,34 @@ class ArchConfig:
     qk_norm: bool = False                  # chameleon
     rope_theta: float = 10000.0
     max_position: int = 1 << 20
+    #: per-layer attention kinds, cycled over the layers: "L" a layer
+    #: windowed by ``sliding_window``, "G" a full one; "" windows every
+    #: layer alike.  With a pattern every layer's cache keeps all tokens
+    window_pattern: str = ""
+    #: RoPE on the full ("G") layers of ``window_pattern`` too
+    global_rope: bool = True
+    #: EXAONE 4.0 blocks: no input norms, each sublayer's output normed
+    #: before its residual add, per-head qk-norm with a learned scale; the
+    #: mixed layer stack (``models/transformer.py``: ``dense_layers``,
+    #: ``window_pattern``, the sigmoid-routed experts)
+    post_norm: bool = False
 
     # MoE
     num_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    #: leading dense SwiGLU layers before the expert layers, and their width
+    dense_layers: int = 0
+    dense_d_ff: int = 0
+    #: "softmax": GShard capacity dispatch over every expert; "sigmoid":
+    #: dropless DeepSeek-V3 routing over all experts, computed for the
+    #: ``experts_held`` (ids 0..experts_held-1) the layer holds
+    router_score: str = "softmax"
+    experts_held: int = 0
+    #: the routed gates' scale, after normalising over the chosen top_k
+    routed_scale: float = 1.0
+    #: shared experts of ``d_ff`` each, run for every token
+    shared_experts: int = 0
 
     # SSM / hybrid (hymba) & rwkv
     ssm_state: int = 16
@@ -179,6 +202,13 @@ class ArchConfig:
             dtype="float32",
             remat=False,
         )
+        if self.router_score == "sigmoid":
+            # the dense layers plus one period of the pattern; half the
+            # experts held
+            scale.update(num_layers=self.dense_layers
+                         + max(1, len(self.window_pattern)),
+                         num_experts=8, top_k=2, experts_held=4,
+                         dense_d_ff=192)
         return dataclasses.replace(self, **scale)
 
 
@@ -213,6 +243,7 @@ def _load_all() -> None:
     from repro_torch.configs import granite_34b  # noqa: F401
     from repro_torch.configs import h2o_danube_3_4b  # noqa: F401
     from repro_torch.configs import hymba_1_5b  # noqa: F401
+    from repro_torch.configs import k_exaone_236b_a23b  # noqa: F401
     from repro_torch.configs import mixtral_8x22b  # noqa: F401
     from repro_torch.configs import qwen2_1_5b  # noqa: F401
     from repro_torch.configs import rwkv6_7b  # noqa: F401

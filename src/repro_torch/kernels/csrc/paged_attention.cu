@@ -75,6 +75,14 @@
 //   token) is skipped, and a row of length 0 gives exact zeros.  Two
 //   kernels rather than one whose last block per row merges through an
 //   atomic counter: no counter to zero between calls, no fence.
+// A window W > 0 (a per-call argument; 0 is none) limits a row of n tokens
+// to its last W: keys at n - W and after, as the flash kernel and the plain
+// version mask them.  Its splits then start at the page that holds n - W,
+// not at column 0 (window_base), so split s takes columns
+// [first + s * pages_per_split, ...) and the tokens before n - W in the first
+// page are skipped; the wrapper takes n_splits from the pages a window can
+// touch, not from MP.  At W = 0 the first page is column 0: the same splits,
+// tiles and sums as without the argument.
 // Unmapped (-1) pages are never read.  Page, token and head strides come
 // from the caller, so a per-layer view pool[:, l, 0] of the serving pool
 // [P, L, 2, T, KV, hd] is read in place (its base and strides must be
@@ -98,6 +106,17 @@ constexpr int kAccFloats = 1024;
 constexpr int kMaxSplits = 512;   // the combine kernel's weights in smem
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The first key a row of len tokens attends under a window (0: none).
+__device__ __forceinline__ int window_lo(int len, int window) {
+  return window > 0 ? max(0, len - window) : 0;
+}
+
+// The first token of the page that holds window_lo: where the row's first
+// split starts.
+__device__ __forceinline__ int window_base(int len, int T_, int window) {
+  return window_lo(len, window) / T_ * T_;
+}
+
 // NC: 16-byte chunks of a head row per lane (2 only for f32 at hd > 128).
 // Scores are kept in log2 units (scale * log2 e folded in), so every
 // exponential is one exp2f; the partial's m is in those units too.
@@ -108,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     const int* __restrict__ lengths, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int H, int KV, int hd, int T_, int MP,
     int pages_per_split, int lpt, int64_t k_sp, int64_t k_st, int64_t k_sh,
-    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale_log2) {
+    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale_log2, int window) {
   constexpr int E = Vec16<T>::kElems;
   constexpr int kUnroll = 4 / NC;  // tokens a group loads before computing
   const int b = blockIdx.x;
@@ -133,10 +152,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 
   // lengths, the page table and q are read side by side: none waits on
   // another
-  const int c0 = split * pages_per_split;
+  const int len = lengths[b];
+  const int c0 = window_base(len, T_, window) / T_ + split * pages_per_split;
   const int c1 = min(c0 + pages_per_split, MP);
-  const int start = c0 * T_;
-  const int end = min(c1 * T_, lengths[b]);
+  const int start = max(c0 * T_, window_lo(len, window));
+  const int end = min(c1 * T_, len);
   const int* row = page_table + (int64_t)b * MP;
   // partial of head h0 + g at ((b * H + h0 + g) * n_splits + split)
   const int64_t pbase = ((int64_t)b * H + h0) * n_splits + split;
@@ -299,10 +319,13 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   }
 }
 
-// A row's live splits: ceil(min(len, cap) / tps), cap = MP * T the page
-// table's tokens, tps = pages_per_split * T.
-__device__ __forceinline__ int live_splits_of(int len, int tps, int cap) {
-  return len <= 0 ? 0 : (min(len, cap) + tps - 1) / tps;
+// A row's live splits: ceil((min(len, cap) - base) / tps), cap = MP * T
+// the page table's tokens, tps = pages_per_split * T, base its window's
+// first page's first token (0 without a window).
+__device__ __forceinline__ int live_splits_of(int len, int tps, int cap,
+                                              int T_, int window) {
+  if (len <= 0) return 0;
+  return max(0, min(len, cap) - window_base(len, T_, window) + tps - 1) / tps;
 }
 
 __device__ __forceinline__ float block_reduce(float v, float* red,
@@ -328,13 +351,15 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     T* __restrict__ out, int hd, int n_splits,
-    const int* __restrict__ lengths, int H, int tps, int cap) {
+    const int* __restrict__ lengths, int H, int tps, int cap, int T_,
+    int window) {
   __shared__ float w_s[kMaxSplits];
   __shared__ float red[kThreads / 32];
   const int64_t bh = blockIdx.x;
   const int n = lengths == nullptr
                     ? n_splits
-                    : min(n_splits, live_splits_of(lengths[bh / H], tps, cap));
+                    : min(n_splits, live_splits_of(lengths[bh / H], tps, cap,
+                                                   T_, window));
   const float* ml = part_ml + 2 * bh * n_splits;
   float M = -INFINITY;
   for (int s = threadIdx.x; s < n; s += kThreads) M = fmaxf(M, ml[2 * s]);
@@ -401,9 +426,11 @@ __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
 
 // The batch's live splits, in every lane of the calling warp.
 __device__ __forceinline__ int batch_live_splits(const int* lengths, int B,
-                                                 int tps, int cap, int lane) {
+                                                 int tps, int cap, int T_,
+                                                 int window, int lane) {
   int n = 0;
-  for (int b = lane; b < B; b += 32) n += live_splits_of(lengths[b], tps, cap);
+  for (int b = lane; b < B; b += 32)
+    n += live_splits_of(lengths[b], tps, cap, T_, window);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
   return n;
@@ -412,11 +439,13 @@ __device__ __forceinline__ int batch_live_splits(const int* lengths, int B,
 // Row b and split s of the batch's live split number rc (rows in order,
 // each row's live splits in order), in every lane of the calling warp.
 __device__ __forceinline__ void locate_split(const int* lengths, int B,
-                                             int tps, int cap, int rc,
-                                             int lane, int& b, int& s) {
+                                             int tps, int cap, int T_,
+                                             int window, int rc, int lane,
+                                             int& b, int& s) {
   int base = 0;
   for (int b0 = 0; b0 < B; b0 += 32) {
-    const int n = b0 + lane < B ? live_splits_of(lengths[b0 + lane], tps, cap)
+    const int n = b0 + lane < B ? live_splits_of(lengths[b0 + lane], tps, cap,
+                                                 T_, window)
                                 : 0;
     const int inc = warp_inclusive_sum(n, lane);
     const unsigned hit = __ballot_sync(0xffffffffu, base + inc > rc);
@@ -445,7 +474,7 @@ __global__ void __launch_bounds__(MmaCfg<HD, NT>::kThreads)
         float* __restrict__ part_ml, int B, int H, int KV, int hd, int T_,
         int MP, int n_splits, int pages_per_split, int64_t k_sp,
         int64_t k_st, int64_t k_sh, int64_t v_sp, int64_t v_st,
-        int64_t v_sh, float scale_log2) {
+        int64_t v_sh, float scale_log2, int window) {
   using Cfg = MmaCfg<HD, NT>;
   constexpr int kBK = Cfg::kBK;
   constexpr int kLd = Cfg::kLd;
@@ -472,16 +501,19 @@ __global__ void __launch_bounds__(MmaCfg<HD, NT>::kThreads)
   // of every kRowStep-th row of a tile
   const int ld_q = tid % Cfg::kRowLanes;
 
-  const int live = batch_live_splits(lengths, B, tps, cap, lane) * n_heads;
+  const int live =
+      batch_live_splits(lengths, B, tps, cap, T_, window, lane) * n_heads;
   for (int c = blockIdx.x; c < live; c += gridDim.x) {
     const int rc = c / n_heads;
     const int kh = c - rc * n_heads;
     const int kvh = kh / n_hc;
     const int g0 = (kh - kvh * n_hc) * NT * 16;  // first head of the chunk
     int b, s;
-    locate_split(lengths, B, tps, cap, rc, lane, b, s);
-    const int start = s * tps;
-    const int end = min(start + tps, min(lengths[b], cap));
+    locate_split(lengths, B, tps, cap, T_, window, rc, lane, b, s);
+    const int len = lengths[b];
+    const int first = window_base(len, T_, window) + s * tps;
+    const int start = max(first, window_lo(len, window));
+    const int end = min(first + tps, min(len, cap));
     const int n_tiles = (end - start + kBK - 1) / kBK;
     const int* row = page_table + (int64_t)b * MP;
 
@@ -725,7 +757,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    int hd, int T_, int MP, int n_splits, int pages_per_split,
                    int lpt, int64_t k_sp, int64_t k_st, int64_t k_sh,
                    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale,
-                   cudaStream_t stream) {
+                   int window, cudaStream_t stream) {
   const int G = H / KV;
   dim3 grid(B, KV * ((G + kMaxG - 1) / kMaxG), n_splits);
   paged_split_kernel<T, NC><<<grid, kThreads, 0, stream>>>(
@@ -733,12 +765,12 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const T*>(v_pages), static_cast<const int*>(page_table),
       static_cast<const int*>(lengths), part_acc, part_ml, H, KV, hd, T_, MP,
       pages_per_split, lpt, k_sp, k_st, k_sh, v_sp, v_st, v_sh,
-      scale * kLog2e);
+      scale * kLog2e, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<T><<<B * H, kThreads, 0, stream>>>(
       part_acc, part_ml, static_cast<T*>(out), hd, n_splits, nullptr, H, 0,
-      0);
+      0, T_, 0);
   return cudaGetLastError();
 }
 
@@ -752,8 +784,8 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
                        float* part_ml, int B, int H, int KV, int hd, int T_,
                        int MP, int n_splits, int pages_per_split,
                        int64_t k_sp, int64_t k_st, int64_t k_sh, int64_t v_sp,
-                       int64_t v_st, int64_t v_sh, float scale, int sm_count,
-                       cudaStream_t stream) {
+                       int64_t v_st, int64_t v_sh, float scale, int window,
+                       int sm_count, cudaStream_t stream) {
   using Cfg = MmaCfg<HD, NT>;
   static int per_sm = 0;
   static const cudaError_t attr = [] {
@@ -782,12 +814,13 @@ cudaError_t launch_mma(const void* q, const void* k_pages,
       static_cast<const bf16*>(v_pages), static_cast<const int*>(page_table),
       static_cast<const int*>(lengths), part_acc, part_ml, B, H, KV, hd, T_,
       MP, n_splits, pages_per_split, k_sp, k_st, k_sh, v_sp, v_st, v_sh,
-      scale * kLog2e);
+      scale * kLog2e, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_combine_kernel<bf16><<<B * H, kThreads, 0, stream>>>(
       part_acc, part_ml, static_cast<bf16*>(out), hd, n_splits,
-      static_cast<const int*>(lengths), H, pages_per_split * T_, MP * T_);
+      static_cast<const int*>(lengths), H, pages_per_split * T_, MP * T_, T_,
+      window);
   return cudaGetLastError();
 }
 
@@ -799,11 +832,12 @@ cudaError_t launch_mma_hd(int NT, const void* q, const void* k_pages,
                           int T_, int MP, int n_splits, int pages_per_split,
                           int64_t k_sp, int64_t k_st, int64_t k_sh,
                           int64_t v_sp, int64_t v_st, int64_t v_sh,
-                          float scale, int sm_count, cudaStream_t stream) {
+                          float scale, int window, int sm_count,
+                          cudaStream_t stream) {
 #define PAGED_MMA_ARGS                                                     \
   q, k_pages, v_pages, page_table, lengths, out, part_acc, part_ml, B, H,  \
       KV, hd, T_, MP, n_splits, pages_per_split, k_sp, k_st, k_sh, v_sp,   \
-      v_st, v_sh, scale, sm_count, stream
+      v_st, v_sh, scale, window, sm_count, stream
   switch (NT) {
     case 1: return launch_mma<HD, 1>(PAGED_MMA_ARGS);
     case 2: return launch_mma<HD, 2>(PAGED_MMA_ARGS);
@@ -820,17 +854,19 @@ cudaError_t launch_mma_hd(int NT, const void* q, const void* k_pages,
 // elements; the pools' base pointers and page/token/head strides must be
 // 16-byte aligned.  part_acc [B * H * n_splits * hd] and part_ml
 // [B * H * n_splits * 2] are f32 scratch.  Split s takes page-table
-// columns [s * pages_per_split, min((s + 1) * pages_per_split, MP)).
-// Returns a cudaError_t (0 on success).
+// columns [f + s * pages_per_split, min(f + (s + 1) * pages_per_split, MP)),
+// f the column of the row's window's first key (0 at window 0).  Returns a
+// cudaError_t (0 on success).
 extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* out, void* part_acc,
     void* part_ml, int B, int H, int KV, int hd, int T, int MP, int n_splits,
     int pages_per_split, int64_t k_sp, int64_t k_st, int64_t k_sh,
-    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale, void* stream) {
+    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale, int window,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 16 || hd > 256 || n_splits < 1 ||
-      n_splits > kMaxSplits || pages_per_split < 1)
+      n_splits > kMaxSplits || pages_per_split < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   const int elems = dtype == 0 ? 4 : 8;  // per 16-byte chunk
   const int chunks = hd / elems;
@@ -842,35 +878,36 @@ extern "C" int paged_attention_launch(
     return launch<float, 2>(q, k_pages, v_pages, page_table, lengths, out,
                             acc, ml, B, H, KV, hd, T, MP, n_splits,
                             pages_per_split, lpt, k_sp, k_st, k_sh, v_sp,
-                            v_st, v_sh, scale, s);
+                            v_st, v_sh, scale, window, s);
   if (dtype == 0)
     return launch<float, 1>(q, k_pages, v_pages, page_table, lengths, out,
                             acc, ml, B, H, KV, hd, T, MP, n_splits,
                             pages_per_split, lpt, k_sp, k_st, k_sh, v_sp,
-                            v_st, v_sh, scale, s);
+                            v_st, v_sh, scale, window, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, 1>(q, k_pages, v_pages, page_table, lengths,
                                     out, acc, ml, B, H, KV, hd, T, MP,
                                     n_splits, pages_per_split, lpt, k_sp,
-                                    k_st, k_sh, v_sp, v_st, v_sh, scale, s);
+                                    k_st, k_sh, v_sp, v_st, v_sh, scale,
+                                    window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core design, bfloat16 only, hd a multiple of 8 in 16..128;
 // arguments as paged_attention_launch's, plus the card's SM count.  Only
-// row b's first ceil(min(lengths[b], MP T) / (pages_per_split T)) splits
-// are written and read.  Returns a cudaError_t (0 on success).
+// row b's first live_splits_of(lengths[b], ...) splits are written and
+// read.  Returns a cudaError_t (0 on success).
 extern "C" int paged_attention_mma_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_table, const void* lengths, void* out, void* part_acc,
     void* part_ml, int B, int H, int KV, int hd, int T, int MP, int n_splits,
     int pages_per_split, int64_t k_sp, int64_t k_st, int64_t k_sh,
-    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale, int sm_count,
-    void* stream) {
+    int64_t v_sp, int64_t v_st, int64_t v_sh, float scale, int window,
+    int sm_count, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 16 || hd > 128 || n_splits < 1 ||
       n_splits > kMaxSplits || pages_per_split < 1 || sm_count < 1 ||
-      KV < 1 || H % KV != 0)
+      KV < 1 || H % KV != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   const int NT = min(4, (H / KV + 15) / 16);
   float* acc = static_cast<float*>(part_acc);
@@ -879,9 +916,9 @@ extern "C" int paged_attention_mma_launch(
     return launch_mma_hd<64>(NT, q, k_pages, v_pages, page_table, lengths,
                              out, acc, ml, B, H, KV, hd, T, MP, n_splits,
                              pages_per_split, k_sp, k_st, k_sh, v_sp, v_st,
-                             v_sh, scale, sm_count, s);
+                             v_sh, scale, window, sm_count, s);
   return launch_mma_hd<128>(NT, q, k_pages, v_pages, page_table, lengths,
                             out, acc, ml, B, H, KV, hd, T, MP, n_splits,
                             pages_per_split, k_sp, k_st, k_sh, v_sp, v_st,
-                            v_sh, scale, sm_count, s);
+                            v_sh, scale, window, sm_count, s);
 }

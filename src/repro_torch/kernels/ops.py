@@ -22,12 +22,13 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import expert_ffn as _ef
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _rw
 
 _calls: Dict[str, int] = {"flash_attention": 0, "paged_attention_decode": 0,
-                          "rwkv6_scan": 0, "ssd_scan": 0}
+                          "rwkv6_scan": 0, "ssd_scan": 0, "expert_ffn": 0}
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -87,14 +88,28 @@ def ssd_scan(xh, dt, A, Bm, Cm, state):
     return ssd_chunked(xh, dt, A, Bm, Cm, state)
 
 
-def paged_attention_decode(q, k_pages, v_pages, page_table, lengths):
+def paged_attention_decode(q, k_pages, v_pages, page_table, lengths,
+                           window: int = 0):
     """Decode-path dispatcher: q [B,H,hd] against (possibly strided)
-    page pools [P,T,KV,hd] through ``page_table`` [B,MP] int32."""
+    page pools [P,T,KV,hd] through ``page_table`` [B,MP] int32; ``window``
+    > 0 attends each row's last ``window`` keys."""
     _calls["paged_attention_decode"] += 1
     if q.is_cuda:
         refuse_autograd("paged_attention_decode", "paged_attention_plain",
                         q, k_pages, v_pages)
         return _pa.paged_attention_cuda(q, k_pages, v_pages, page_table,
-                                        lengths)
+                                        lengths, window=window)
     return _pa.paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     lengths)
+                                     lengths, window=window)
+
+
+def expert_ffn(x, ids, gates, w_gate, w_up, w_down):
+    """Held experts' gated SwiGLU outputs per token: x [T, D], ids and
+    gates [T, K] (ids local to the held experts), w_gate/w_up [held, D,
+    F], w_down [held, F, D] -> [T, D] f32."""
+    _calls["expert_ffn"] += 1
+    if x.is_cuda:
+        refuse_autograd("expert_ffn", "expert_ffn_plain", x, w_gate, w_up,
+                        w_down)
+        return _ef.expert_ffn_cuda(x, ids, gates, w_gate, w_up, w_down)
+    return _ef.expert_ffn_plain(x, ids, gates, w_gate, w_up, w_down)

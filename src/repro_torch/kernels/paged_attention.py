@@ -22,6 +22,13 @@ the card), so a CUDA graph replays one launch for any lengths.
 masking, probabilities cast to V's dtype, zeros for rows of length 0).
 The CPU path and the tests use it; ``chip_smoke.py`` holds the kernels
 against it on the card.
+
+``window`` (tokens, 0 = none) limits each row of n tokens to its last
+``window`` keys, ``n - window`` on: the windowed layers of a model whose
+layers differ (``ArchConfig.window_pattern``).  The kernels then start a
+row's splits at the page that holds its first key, and the plan counts
+the pages a window can touch (:func:`window_columns`) in place of the page
+table's width; at 0 the plan and the launch are the ones without it.
 """
 
 from __future__ import annotations
@@ -58,6 +65,28 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: call also counts once as ``paged_attention``)
 MMA_LAUNCHES = "paged_attention.tensor_cores"
 CUDA_CORE_LAUNCHES = "paged_attention.cuda_cores"
+#: and of the calls with a window, on either route
+WINDOWED_LAUNCHES = "paged_attention.windowed"
+
+
+def window_columns(MP: int, T: int, window: int) -> int:
+    """Page-table columns a row's attended keys can span: all ``MP``
+    without a window, else the pages ``window`` keys starting anywhere in
+    a page reach, ``ceil((window + T - 1) / T)``."""
+    return MP if window <= 0 else min(MP, -(-(window + T - 1) // T))
+
+
+def pages_read(lengths, T: int, window: int = 0) -> int:
+    """Pages one layer's call reads for rows of ``lengths`` tokens (the
+    new one included): each row's pages from the one holding its first
+    attended key to the one holding its last."""
+    total = 0
+    for n in lengths:
+        n = int(n)
+        if n > 0:
+            lo = max(0, n - window) if window > 0 else 0
+            total += (n - 1) // T - lo // T + 1
+    return total
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,9 +117,11 @@ def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
-                          *, scale_override: Optional[float] = None):
+                          *, scale_override: Optional[float] = None,
+                          window: int = 0):
     """q [B,H,hd]; k/v_pages [P,T,KV,hd]; page_table [B,MP] int32 (-1 =
-    unmapped); lengths [B] -> out [B,H,hd] in q's dtype."""
+    unmapped); lengths [B] -> out [B,H,hd] in q's dtype.  ``window`` > 0
+    keeps each row's keys from ``lengths - window`` on."""
     B, H, hd = q.shape
     P, T, KV, _ = k_pages.shape
     MP = page_table.shape[1]
@@ -104,6 +135,8 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, lengths,
     pos = torch.arange(MP * T, device=q.device)[None, :]
     valid = (pos < lengths[:, None]) & \
         torch.repeat_interleave(page_table >= 0, T, dim=1)
+    if window > 0:
+        valid &= pos >= lengths[:, None] - window
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
     s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -124,7 +157,8 @@ def _check(cond: bool, msg) -> None:
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
-                         *, scale_override: Optional[float] = None):
+                         *, scale_override: Optional[float] = None,
+                         window: int = 0):
     """Launch the CUDA kernels; same contract as the plain version.
 
     ``k_pages``/``v_pages`` may be strided views (e.g. ``pool[:, l, 0]``
@@ -132,8 +166,9 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     contiguous and the views start and step on 16-byte boundaries (the
     kernel reads 16-byte vectors).  Raises on anything the kernels do not
     take.  Counts one launch per call (a split and a combine kernel) as
-    ``paged_attention``, and once more under the route's name
-    (``MMA_LAUNCHES`` or ``CUDA_CORE_LAUNCHES``)."""
+    ``paged_attention``, once more under the route's name
+    (``MMA_LAUNCHES`` or ``CUDA_CORE_LAUNCHES``), and with a window once
+    as ``WINDOWED_LAUNCHES``."""
     _check(q.is_cuda, "q must be a CUDA tensor")
     dev = q.device
     tensors = (k_pages, v_pages, page_table, lengths)
@@ -163,6 +198,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,)
            and lengths.is_contiguous(), "lengths must be contiguous "
            "int32 [B]")
+    _check(isinstance(window, int) and window >= 0,
+           lambda: f"window {window!r} (an int, 0 for none)")
     per_vec = 16 // q.element_size()
     _check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0
            and all(st % per_vec == 0 for st in k_st[:3] + v_st[:3]),
@@ -174,7 +211,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
         scale_override
     MP = page_table.shape[1]
     sms = sm_count(dev)
-    n_splits, per = split_plan(B, KV, MP, T=T, G=H // KV, sm_count=sms)
+    n_splits, per = split_plan(B, KV, window_columns(MP, T, window), T=T,
+                               G=H // KV, sm_count=sms)
     part = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
                        device=dev)
     lib = _lib()
@@ -182,7 +220,7 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part.data_ptr(), part.data_ptr() + 4 * B * H * n_splits * hd,
             B, H, KV, hd, T, MP, n_splits, per, *k_st[:3], *v_st[:3],
-            float(scale))
+            float(scale), window)
     stream = torch.cuda.current_stream(dev).cuda_stream
     mma = uses_tensor_cores(q.dtype, hd)
     if mma:
@@ -194,6 +232,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                            f"cudaError {err}")
     cuda_build.count_launch("paged_attention")
     cuda_build.count_launch(MMA_LAUNCHES if mma else CUDA_CORE_LAUNCHES)
+    if window:
+        cuda_build.count_launch(WINDOWED_LAUNCHES)
     return out
 
 
@@ -202,7 +242,7 @@ def _lib():
     if lib.paged_attention_launch.argtypes is None:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         common = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                  i64, i64, i64, i64, i64, i64, ctypes.c_float]
+                  i64, i64, i64, i64, i64, i64, ctypes.c_float, i]
         lib.paged_attention_mma_launch.argtypes = common + [i, p]
         lib.paged_attention_mma_launch.restype = ctypes.c_int
         lib.paged_attention_launch.argtypes = [i] + common + [p]

@@ -11,6 +11,13 @@ the scale applied after the contraction, masking uses -1e30, the softmax
 runs in f32, and the probabilities are cast to V's dtype before the second
 contraction.  Where the reference returned updated caches or pools, the
 port writes them **in place** (noted at each site) and returns them too.
+
+A model whose layers differ (``ArchConfig.window_pattern``) passes each
+layer's index (``layer_idx``): :func:`layer_attention` gives that layer's
+window and whether it applies RoPE.  Without one every layer takes
+``cfg.sliding_window`` and RoPE, as in the reference.  EXAONE 4.0
+attention (``cfg.post_norm``) norms q and k per head with learned scales
+(``q_norm``, ``k_norm``) before RoPE.
 """
 
 from __future__ import annotations
@@ -22,21 +29,40 @@ import torch
 
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
 from repro_torch.models.layers import (Params, apply_rope, dense,
-                                       dense_init, dtype_of, rope_angles)
+                                       dense_init, dtype_of, rms_norm,
+                                       rms_norm_init, rope_angles)
 
 NEG_INF = -1e30
+
+
+def layer_attention(cfg, layer_idx: Optional[int]
+                    ) -> Tuple[Optional[int], bool]:
+    """``(window, rope)`` of layer ``layer_idx``: with a
+    ``window_pattern`` an "L" layer is windowed by ``sliding_window`` and
+    a "G" layer attends every key, with RoPE only if ``global_rope``;
+    otherwise (or without an index) ``(cfg.sliding_window, True)``."""
+    pat = cfg.window_pattern
+    if not pat or layer_idx is None:
+        return cfg.sliding_window, True
+    if pat[layer_idx % len(pat)] == "L":
+        return cfg.sliding_window, True
+    return None, cfg.global_rope
 
 
 def attention_init(gen: torch.Generator, cfg,
                    n: Optional[int] = None) -> Params:
     dt = dtype_of(cfg)
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    return {
+    p = {
         "wq": dense_init(gen, D, H * hd, dt, bias=cfg.qkv_bias, n=n),
         "wk": dense_init(gen, D, KV * hd, dt, bias=cfg.qkv_bias, n=n),
         "wv": dense_init(gen, D, KV * hd, dt, bias=cfg.qkv_bias, n=n),
         "wo": dense_init(gen, H * hd, D, dt, n=n),
     }
+    if cfg.qk_norm and cfg.post_norm:
+        p["q_norm"] = rms_norm_init(hd, gen.device, n)
+        p["k_norm"] = rms_norm_init(hd, gen.device, n)
+    return p
 
 
 def _head_rms_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -55,7 +81,10 @@ def _qkv(p: Params, cfg, x: torch.Tensor,
     q = dense(p["wq"], x).reshape(B, S, H, hd)
     k = dense(p["wk"], x).reshape(B, S, KV, hd)
     v = dense(p["wv"], x).reshape(B, S, KV, hd)
-    if cfg.qk_norm:
+    if "q_norm" in p:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    elif cfg.qk_norm:
         q, k = _head_rms_norm(q), _head_rms_norm(k)
     if rope and positions is not None:
         sin, cos = rope_angles(positions, hd, cfg.rope_theta)
@@ -112,16 +141,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------- public ops
 def attn_forward(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
                  *, causal: bool = True, flags: Flags = DEFAULT_FLAGS,
-                 return_kv: bool = False):
+                 return_kv: bool = False, layer_idx: Optional[int] = None):
     """Prefill attention.  Returns (out, (k, v) if return_kv)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    window, rope = layer_attention(cfg, layer_idx)
+    q, k, v = _qkv(p, cfg, x, positions, rope)
     if flags.use_kernels and causal:
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+        out = kops.flash_attention(q, k, v, window=window)
     else:
         out = chunked_attention(q, k, v, positions, positions,
                                 causal=causal,
-                                window=cfg.sliding_window if causal else None,
+                                window=window if causal else None,
                                 flags=flags)
     B, S = x.shape[:2]
     y = dense(p["wo"], out.reshape(B, S, -1))
@@ -177,7 +207,8 @@ def attn_decode(p: Params, cfg, x: torch.Tensor,
 def attn_decode_paged(p: Params, cfg, x: torch.Tensor,
                       k_pages: torch.Tensor, v_pages: torch.Tensor,
                       page_table: torch.Tensor, lengths: torch.Tensor,
-                      flags: Flags = DEFAULT_FLAGS):
+                      flags: Flags = DEFAULT_FLAGS,
+                      layer_idx: Optional[int] = None):
     """One-token batched decode straight against the paged KV pool.
 
     x           [B, 1, D]
@@ -188,7 +219,8 @@ def attn_decode_paged(p: Params, cfg, x: torch.Tensor,
     The new token's K/V is scattered **in place** into each sequence's
     tail page (``page_table[b, lengths[b] // T]`` must be mapped), then
     attention runs over ``lengths + 1`` tokens through the page table.
-    Active sequences must not share a tail page.
+    Active sequences must not share a tail page.  A windowed layer
+    (:func:`layer_attention`) attends the last ``window`` of them.
 
     Returns (y, k_pages, v_pages).
     """
@@ -197,7 +229,8 @@ def attn_decode_paged(p: Params, cfg, x: torch.Tensor,
     T = k_pages.shape[1]
     H, hd = cfg.num_heads, cfg.head_dim_
     positions = lengths[:, None].to(torch.int32)  # == dense path's step
-    q, k, v = _qkv(p, cfg, x, positions)
+    window, rope = layer_attention(cfg, layer_idx)
+    q, k, v = _qkv(p, cfg, x, positions, rope)
 
     tail = torch.gather(page_table, 1, (lengths[:, None] // T).long())[:, 0]
     tail = tail.clamp(min=0).long()                 # contract: mapped
@@ -207,7 +240,8 @@ def attn_decode_paged(p: Params, cfg, x: torch.Tensor,
 
     out = kops.paged_attention_decode(q[:, 0].contiguous(), k_pages,
                                       v_pages, page_table,
-                                      (lengths + 1).to(torch.int32))
+                                      (lengths + 1).to(torch.int32),
+                                      window=window or 0)
     y = dense(p["wo"], out.reshape(B, 1, H * hd))
     return y, k_pages, v_pages
 

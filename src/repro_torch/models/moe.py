@@ -13,6 +13,17 @@ the same slots, the same sums.  The expert products are the reference's
 einsums, batched over experts.
 
 dbrx-132b: 16 experts, top-4; mixtral-8x22b: 8 experts, top-2.
+
+:func:`routed_apply` is the other expert layer (``router_score
+"sigmoid"``, k-exaone-236b-a23b), which the JAX package does not have:
+DeepSeek-V3's router (sigmoid scores in f32 over all ``num_experts``, the
+top_k of the scores plus a per-expert selection bias, gates the chosen
+scores normalised over their sum and scaled by ``routed_scale``), no
+capacity and no drops, computed for the ``experts_held`` experts the
+layer holds, ids ``first..first+held-1`` (the chip's share of an
+expert-parallel deployment; the absent experts' part is left out), plus
+the shared experts every token runs.  The held experts' products are
+``kernels/expert_ffn.py``'s grouped kernels on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +34,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dtype_of, randn_init
+from repro_torch.models.layers import (Params, dense_init, dtype_of,
+                                       mlp_apply, randn_init)
+from repro_torch.obs.trace import NULL_SPAN
 
 #: tokens per dispatch group when the flags name none (the reference's)
 GROUP_TOKENS = 1024
@@ -118,3 +131,64 @@ def moe_apply(p: Params, cfg, x: torch.Tensor,
     me = torch.mean(torch.softmax(logits, dim=-1), dim=(0, 1))
     ce = torch.mean(F.one_hot(ids[:, :, 0], E).float(), dim=(0, 1))
     return y, E * torch.sum(me * ce)
+
+
+# ------------------------------------------------- sigmoid-routed experts
+def routed_init(gen: torch.Generator, cfg, n: Optional[int] = None) -> Params:
+    """One layer's params of :func:`routed_apply` (``n`` stacks ``n``
+    layers): the router over all ``num_experts`` and its selection bias in
+    float32, the ``experts_held`` experts' matrices, and the shared
+    experts' SwiGLU of ``shared_experts * d_ff``."""
+    dt = dtype_of(cfg)
+    D, Fd, E, Eh = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_held
+    lead = () if n is None else (n,)
+    std = 1.0 / math.sqrt(D)
+    p = {
+        "router": randn_init(gen, (*lead, D, E), 0.02, torch.float32),
+        "select_bias": torch.zeros((*lead, E), dtype=torch.float32,
+                                   device=gen.device),
+        "w_gate": randn_init(gen, (*lead, Eh, D, Fd), std, dt),
+        "w_up": randn_init(gen, (*lead, Eh, D, Fd), std, dt),
+        "w_down": randn_init(gen, (*lead, Eh, Fd, D), 1.0 / math.sqrt(Fd),
+                             dt),
+    }
+    if cfg.shared_experts:
+        Fs = cfg.shared_experts * Fd
+        p["shared"] = {"w_gate": dense_init(gen, D, Fs, dt, n=n),
+                       "w_up": dense_init(gen, D, Fs, dt, n=n),
+                       "w_down": dense_init(gen, Fs, D, dt, n=n)}
+    return p
+
+
+def route_sigmoid(p: Params, cfg, xt: torch.Tensor):
+    """xt [T, D] -> (expert ids [T, K], gates [T, K] f32): the top_k of
+    ``sigmoid(xt W_r) + select_bias`` in descending order, gated by their
+    scores (without the bias) over the scores' sum, times
+    ``routed_scale``."""
+    s = torch.sigmoid(xt.float() @ p["router"])                # [T, E]
+    ids = torch.topk(s + p["select_bias"], cfg.top_k, dim=-1).indices
+    w = torch.gather(s, 1, ids)
+    return ids, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scale
+
+
+def routed_apply(p: Params, cfg, x: torch.Tensor, first: int = 0,
+                 trace=None) -> torch.Tensor:
+    """x [B, S, D] -> y [B, S, D]: the held experts' (``first`` on)
+    part of the routed sum, plus the shared experts if ``p`` has them.
+    Dropless, and free of host syncs, so a CUDA graph captures it.  With
+    an enabled ``trace`` an eager call records the routing as a
+    ``moe.route`` span; a call being captured records none."""
+    from repro_torch.kernels import ops as kops
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    on = (trace is not None and trace.enabled
+          and not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
+    with (trace.span("moe.route", op="moe", tokens=B * S,
+                     held=p["w_gate"].shape[0], top_k=cfg.top_k)
+          if on else NULL_SPAN):
+        ids, gates = route_sigmoid(p, cfg, xt)
+    y = kops.expert_ffn(xt, ids - first, gates, p["w_gate"], p["w_up"],
+                        p["w_down"]).to(x.dtype)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xt, "swiglu")
+    return y.reshape(B, S, D)

@@ -10,10 +10,22 @@ Caches and pools are updated **in place**.  The full-sequence trunk
 (:func:`trunk_train`) is training's forward pass and the encoder-decoder's
 encoder; under ``flags.remat`` each layer's body is activation-checkpointed
 (:func:`_remat`, the reference's ``jax.checkpoint`` around its scan body).
+
+A mixed stack (``cfg.post_norm``: k-exaone-236b-a23b, which the JAX
+package does not have) is EXAONE 4.0's post-norm block over layers of two
+kinds: it keeps its layers' attention and norms stacked on [L], its
+leading dense layers' MLP on [dense_layers] (``mlp``, width
+``dense_d_ff``) and the rest's sigmoid-routed experts on [L -
+dense_layers] (``moe``); :func:`mixed_layer` gives layer l's params, and
+prefill and paged decode run :func:`mixed_block` with layer l's own
+window and RoPE (it serves on the paged path only: no training step, no
+dense slot step).  Its cache keeps every layer's K/V of every token,
+windowed layers too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
@@ -97,6 +109,46 @@ def num_layers(layers: Params) -> int:
     return layers["norm1"]["scale"].shape[0]
 
 
+# -------------------------------------------------------------- mixed stack
+def mixed_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    """A mixed stack's params: norms and attention for all L layers, the
+    dense layers' MLP and the other layers' sigmoid-routed experts."""
+    L = cfg.num_layers
+    Ld = min(cfg.dense_layers, L)
+    p: Params = {"norm1": rms_norm_init(cfg.d_model, gen.device, L),
+                 "norm2": rms_norm_init(cfg.d_model, gen.device, L),
+                 "attn": attn.attention_init(gen, cfg, L)}
+    if Ld:
+        p["mlp"] = mlp_init(gen, dataclasses.replace(
+            cfg, d_ff=cfg.dense_d_ff, act="swiglu"), Ld)
+    if L > Ld:
+        p["moe"] = moe_mod.routed_init(gen, cfg, L - Ld)
+    return p
+
+
+def mixed_layer(layers: Params, cfg: ArchConfig, l: int) -> Params:
+    """Layer ``l``'s params of a mixed stack (views): its norms and
+    attention, and the dense MLP or the experts it has."""
+    lp = {k: layer(layers[k], l) for k in ("norm1", "norm2", "attn")}
+    if l < cfg.dense_layers:
+        lp["mlp"] = layer(layers["mlp"], l)
+    else:
+        lp["moe"] = layer(layers["moe"], l - cfg.dense_layers)
+    return lp
+
+
+def mixed_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, attend,
+                trace=None) -> torch.Tensor:
+    """One layer of a mixed stack, ``attend(h)`` its attention on ``h``:
+    ``x + norm1(attn(x))``, then ``+ norm2(ffn(.))``, the FFN the dense
+    MLP or the routed experts."""
+    eps = cfg.norm_eps
+    x = x + rms_norm(lp["norm1"], attend(x), eps)
+    y = (mlp_apply(lp["mlp"], x, "swiglu") if "mlp" in lp
+         else moe_mod.routed_apply(lp["moe"], cfg, x, trace=trace))
+    return x + rms_norm(lp["norm2"], y, eps)
+
+
 #: the ops whose outputs the "dots" policy keeps: matmuls without batch
 #: dims (``dots_with_no_batch_dims_saveable``); ``aten.bmm`` (the experts'
 #: batched products) is recomputed, as a batched dot is in the reference
@@ -178,6 +230,8 @@ def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     """Loop over layers for full sequences, each layer under
     :func:`_remat`; returns (x, the layers' summed aux loss as an f32
     scalar tensor)."""
+    if cfg.post_norm:
+        raise NotImplementedError(f"{cfg.name}: a mixed stack serves only")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body = _remat(block_train, flags)
     for lp in unstack(layers):
@@ -188,7 +242,7 @@ def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
 
 # ----------------------------------------------------------------- caches
 def cache_len(cfg: ArchConfig, seq_len: int) -> int:
-    if cfg.sliding_window is not None:
+    if cfg.sliding_window is not None and not cfg.window_pattern:
         return min(seq_len, cfg.sliding_window)
     return seq_len
 
@@ -273,9 +327,25 @@ def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
     return x + y, entries
 
 
+def _mixed_prefill(layers: Params, cfg: ArchConfig, l: int,
+                   x: torch.Tensor, positions: torch.Tensor, flags: Flags,
+                   trace=None):
+    """Layer ``l`` of a mixed stack over the prompt: (x, its K/V)."""
+    lp = mixed_layer(layers, cfg, l)
+    kv = {}
+
+    def attend(h):
+        a, (kv["k"], kv["v"]) = attn.attn_forward(
+            lp["attn"], cfg, h, positions, causal=True, flags=flags,
+            return_kv=True, layer_idx=l)
+        return a
+    x = mixed_block(lp, cfg, x, attend, trace)
+    return x, kv
+
+
 def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, flags: Flags,
-                  cache: Dict[str, Any]):
+                  cache: Dict[str, Any], trace=None):
     """Prefill trunk: loop over layers, filling ``cache`` [L, ...] in place
     and returning it.  The cache is reset first, whatever it held: K/V
     zeroed and ``pos`` -1, so slots at or past S read as never written
@@ -287,8 +357,14 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     for key in ("k", "v"):
         if key in cache:
             cache[key].zero_()
+    mixed = cfg.post_norm
     for l in range(num_layers(layers)):
-        x, entries = block_prefill(layer(layers, l), cfg, x, positions, flags)
+        if mixed:
+            x, entries = _mixed_prefill(layers, cfg, l, x, positions, flags,
+                                        trace)
+        else:
+            x, entries = block_prefill(layer(layers, l), cfg, x, positions,
+                                       flags)
         for key in keys:
             if key in ("k", "v"):
                 _ring_fill(cache[key][l], entries[key],
@@ -342,6 +418,9 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     updated in place and returned.  ``step`` stays on the device: it is
     passed down as a tensor and advanced in place, so a step captured
     against a static cache moves it on at every replay."""
+    if cfg.post_norm:
+        raise NotImplementedError(f"{cfg.name}: a mixed stack decodes on "
+                                  "the paged path only")
     step = cache["step"]
     keys = _layer_keys(cfg)
     # every layer writes the same new position into its slot (in place),
@@ -356,7 +435,7 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
                        pool: torch.Tensor, page_table: torch.Tensor,
-                       lengths: torch.Tensor, flags: Flags):
+                       lengths: torch.Tensor, flags: Flags, trace=None):
     """Decode one token per sequence straight from the paged KV pool.
 
     x          [B, 1, D]
@@ -372,7 +451,14 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     if cfg.block_type not in (DENSE, MOE):
         raise NotImplementedError(
             f"{cfg.name}: paged decode covers DENSE and MOE blocks only")
+    mixed = cfg.post_norm
     for l in range(num_layers(layers)):
+        if mixed:
+            lp = mixed_layer(layers, cfg, l)
+            x = mixed_block(lp, cfg, x, lambda h: attn.attn_decode_paged(
+                lp["attn"], cfg, h, pool[:, l, 0], pool[:, l, 1], page_table,
+                lengths, flags, layer_idx=l)[0], trace)
+            continue
         lp = layer(layers, l)
         xn = rms_norm(lp["norm1"], x, cfg.norm_eps)
         a, _, _ = attn.attn_decode_paged(lp["attn"], cfg, xn, pool[:, l, 0],

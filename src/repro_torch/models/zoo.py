@@ -13,6 +13,12 @@ cross-entropy plus ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.
 ``abstract_params``, ``input_specs`` and ``cache_specs`` give the dry run
 (``launch/dryrun.py``) every input of a step as ``meta`` tensors: shapes
 and dtypes, no storage.
+
+A mixed stack (``cfg.post_norm``: k-exaone-236b-a23b) reads
+out through its own matrix (``readout``) where ``tie_embeddings`` is
+false; every other model reads out through the embedding table, as in
+the reference.  ``trace`` (a ``SpanTracer``, set by the serving engine)
+lets its expert layers record their routing (``moe.route``).
 """
 
 from __future__ import annotations
@@ -26,10 +32,12 @@ from repro_torch.configs.base import DENSE, MOE, SHAPES, ArchConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models.flags import DEFAULT_FLAGS, Flags
-from repro_torch.models.layers import (chunked_softmax_xent, dtype_of,
-                                       embed_init, embed_logits,
-                                       embed_lookup, rms_norm, rms_norm_init)
-from repro_torch.models.transformer import (init_cache, stacked_layers_init,
+from repro_torch.models.layers import (chunked_softmax_xent, dense,
+                                       dense_init, dtype_of, embed_init,
+                                       embed_logits, embed_lookup, rms_norm,
+                                       rms_norm_init)
+from repro_torch.models.transformer import (init_cache, mixed_init,
+                                            stacked_layers_init,
                                             trunk_decode, trunk_decode_paged,
                                             trunk_prefill, trunk_train)
 
@@ -41,6 +49,7 @@ class Model:
     cfg: ArchConfig
     flags: Flags = DEFAULT_FLAGS
     device: Any = "cuda"
+    trace: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -60,6 +69,12 @@ class Model:
         }
         if cfg.encoder_decoder:
             params["trunk"] = encdec_mod.encdec_init(generator, cfg)
+        elif cfg.post_norm:
+            params["trunk"] = mixed_init(generator, cfg)
+            if not cfg.tie_embeddings:
+                params["readout"] = dense_init(
+                    generator, cfg.d_model, cfg.padded_vocab, dtype_of(cfg),
+                    scale=0.02)
         else:
             params["trunk"] = stacked_layers_init(generator, cfg,
                                                   cfg.num_layers)
@@ -77,6 +92,8 @@ class Model:
 
     def _readout(self, params, x: torch.Tensor) -> torch.Tensor:
         xn = rms_norm(params["final_norm"], x, self.cfg.norm_eps)
+        if "readout" in params:
+            return dense(params["readout"], xn)
         return embed_logits(params["embed"], xn)
 
     # ------------------------------------------------------------------ loss
@@ -136,7 +153,7 @@ class Model:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
             x, cache = trunk_prefill(params["trunk"], cfg, x, positions,
-                                     self.flags, cache)
+                                     self.flags, cache, self.trace)
         logits = self._readout(params, x[:, -1:])[:, 0]
         return logits, cache
 
@@ -158,9 +175,12 @@ class Model:
         """Whether :meth:`decode_step_paged` covers this architecture (the
         paged pool keeps absolute positions, so SWA ring caches, the
         recurrent state of RWKV6 and HYBRID blocks and encoder-decoder
-        caches stay on the dense slot path)."""
+        caches stay on the dense slot path).  Per-layer windows
+        (``window_pattern``) keep every token, and the paged kernel takes
+        each layer's window."""
         cfg = self.cfg
-        return (not cfg.encoder_decoder and cfg.sliding_window is None
+        return (not cfg.encoder_decoder
+                and (cfg.sliding_window is None or bool(cfg.window_pattern))
                 and cfg.block_type in (DENSE, MOE))
 
     def decode_step_paged(self, params, pool: torch.Tensor,
@@ -180,7 +200,7 @@ class Model:
         """
         x = embed_lookup(params["embed"], token)
         x = trunk_decode_paged(params["trunk"], self.cfg, x, pool,
-                               page_table, lengths, self.flags)
+                               page_table, lengths, self.flags, self.trace)
         logits = self._readout(params, x)[:, 0]
         return logits, pool
 

@@ -47,6 +47,8 @@ from repro_torch.core.api import LMBHost
 from repro_torch.core.client import LMBSystem
 from repro_torch.core.pool import OutOfMemory
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.paged_attention import pages_read
+from repro_torch.models.attention import layer_attention
 from repro_torch.models.zoo import Model
 from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, NULL_SPAN, SpanTracer
 from repro_torch.qos.slo import AdmissionController, Decision
@@ -282,6 +284,14 @@ class ServeEngine:
         for fn in (self.staged_prefill, self.staged):
             if fn is not None:
                 fn.trace = self.trace
+        # the model's expert layers record their eager routing here
+        model.trace = self.trace
+        #: the paged step's layers by window (``attn.layer_attention``):
+        #: how many attend each window (None: every key)
+        self._windows: Dict[Optional[int], int] = {}
+        for l in range(self.cfg.num_layers):
+            w = layer_attention(self.cfg, l)[0]
+            self._windows[w] = self._windows.get(w, 0) + 1
         self.paged_rounds = 0
 
     # -------------------------------------------------------------- intake
@@ -516,10 +526,14 @@ class ServeEngine:
         ``serve.admit`` (each ``serve.prefill``, its ``staged.*`` call,
         its KV pages' spans and ``serve.readback``, the host's wait for
         the first token), ``serve.decode`` (``batch``; on the paged path
-        ``pages`` and ``pool``, with ``kv.decode_view``, the step's
+        ``pages``, ``pool``, and ``window_pages`` and ``full_pages``, the
+        pages its windowed and its full layers read, with
+        ``kv.decode_view``, the step's
         ``staged.*`` call, ``serve.readback`` and ``kv.commit_decode``)
         and, pipelined, ``serve.tail`` (the intake half); the TTFT,
-        inter-token and cancel events carry the request's ``req``."""
+        inter-token and cancel events carry the request's ``req``.  In a
+        call that runs eagerly (not captured, not replayed) each
+        sigmoid-routed expert layer's routing is a ``moe.route`` span."""
         impl = (self._step_pipelined if self.ecfg.pipeline
                 else self._step_phased)
         tr = self.trace
@@ -705,7 +719,8 @@ class ServeEngine:
                 span = tr.closed(sid) if tr.enabled else None
                 if span is not None:
                     span.args.update(pages=len(view.pages),
-                                     pool=int(view.pool.shape[0]))
+                                     pool=int(view.pool.shape[0]),
+                                     **self._pages_read(view.lengths))
         for i, (slot, req) in enumerate(live):
             req.out_tokens.append(nxt_tokens[i])
             now = self.clock()
@@ -724,6 +739,19 @@ class ServeEngine:
             return finished, (self.ecfg.round_time_s if self.active
                               or finished else 0.0)
         return finished, time.monotonic() - round_t0
+
+    def _pages_read(self, lengths) -> Dict[str, int]:
+        """The pages the round's paged step reads for rows of ``lengths``
+        stored tokens (the new one makes ``lengths + 1``), summed over
+        its windowed layers (``window_pages``) and its full layers
+        (``full_pages``)."""
+        T = self.ecfg.page_tokens
+        n = [int(x) + 1 for x in lengths]
+        out = {"window_pages": 0, "full_pages": 0}
+        for w, layers in self._windows.items():
+            out["full_pages" if w is None else "window_pages"] += \
+                layers * pages_read(n, T, w or 0)
+        return out
 
     def _paged_batch(self, live: List[tuple]) -> tuple:
         """One batched paged step over ``live`` (slot, request) pairs:

@@ -214,8 +214,15 @@ class _Staged:
         (nothing runs); the capture's counts come back out and become the
         graph's per-replay counts.  Unlike ``torch.cuda.graph``, the
         caches of device and pinned host memory are left as they are: the
-        engine's other stages reuse them every round."""
+        engine's other stages reuse them every round, unless the cache
+        holds more than the card has free: a capture cannot free cached
+        blocks (no ``cudaFree`` while capturing), so its new memory could
+        not come from them, and the cache is emptied first."""
         t0 = time.monotonic()
+        free, _ = torch.cuda.mem_get_info(self.device)
+        if (torch.cuda.memory_reserved(self.device)
+                - torch.cuda.memory_allocated(self.device)) > free:
+            torch.cuda.empty_cache()
         launches, dispatches = (cuda_build.launch_counts(),
                                 kops.dispatch_counts())
         graph = torch.cuda.CUDAGraph()

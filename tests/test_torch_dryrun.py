@@ -324,7 +324,10 @@ def test_argument_bytes_match_the_reference_in_every_cell(reference,
 
     monkeypatch.setattr(Model, "abstract_params", once)
     got = {}
-    for arch in list_configs():
+    # the reference's configs (the port registers one more it lacks)
+    archs = sorted({k.split("|")[0] for k in reference["bytes"]})
+    assert set(archs) < set(list_configs())
+    for arch in archs:
         cfg = get_config(arch)
         for name in cfg.shape_cells():
             for kind, mesh in MESHES.items():
@@ -334,4 +337,4 @@ def test_argument_bytes_match_the_reference_in_every_cell(reference,
                     args, specs, mesh)
     assert got == reference["bytes"]
     assert len(got) == 2 * sum(len(get_config(a).shape_cells())
-                               for a in list_configs())
+                               for a in archs)

@@ -53,11 +53,13 @@ COMMENT_EDITED = ["models/flags.py"]
 
 #: copies the port extends: they put the serving path's spans on the
 #: profiler's clock (``obs/trace.py``), mark the spans whose duration is
-#: modeled (``core/fabric.py``, ``core/faults.py``) and give those a track
-#: of their own (``obs/export.py``); each holds every line of the
-#: original, in order, and only adds lines
+#: modeled (``core/fabric.py``, ``core/faults.py``), give those a track
+#: of their own (``obs/export.py``) and add the fields and the registered
+#: config of a model the reference lacks (``configs/base.py``:
+#: k-exaone-236b-a23b); each holds every line of the original, in order,
+#: and only adds lines
 EXTENDED = ["obs/trace.py", "obs/export.py", "core/fabric.py",
-            "core/faults.py"]
+            "core/faults.py", "configs/base.py"]
 
 
 def _rewritten(rel):
@@ -108,15 +110,26 @@ def test_serve_exports_the_reference_names_and_decode_view():
 
 
 def test_config_base_differs_only_in_load_all():
-    """configs/base.py is now a plain copy (``COPIES``); its ``_load_all``
-    registers the same ten configs as the reference's."""
+    """configs/base.py is an extended copy (``EXTENDED``); its
+    ``_load_all`` registers the reference's ten configs and the one the
+    port adds, k-exaone-236b-a23b, whose config each reference config
+    equals field for field where both have the field."""
+    import dataclasses
+
+    from repro.configs.base import get_config as jget_config
     from repro.configs.base import list_configs as jlist_configs
-    from repro_torch.configs.base import list_configs
+    from repro_torch.configs.base import get_config, list_configs
     # every config of the reference, the encoder-decoder one included
-    assert list_configs() == jlist_configs() == (
+    assert jlist_configs() == (
         "chameleon-34b", "command-r-plus-104b", "dbrx-132b", "granite-34b",
         "h2o-danube-3-4b", "hymba-1.5b", "mixtral-8x22b", "qwen2-1.5b",
         "rwkv6-7b", "seamless-m4t-large-v2")
+    assert list_configs() == tuple(sorted(jlist_configs()
+                                          + ("k-exaone-236b-a23b",)))
+    for name in jlist_configs():
+        ours = dataclasses.asdict(get_config(name))
+        theirs = dataclasses.asdict(jget_config(name))
+        assert {k: ours[k] for k in theirs} == theirs, name
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
