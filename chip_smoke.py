@@ -1791,8 +1791,9 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
                              "operation")
 
     if eng._use_paged:
-        B = max(eng.staged.graphs)
-        graph = eng.staged.graphs[B].graph
+        # graphs by (pool address, pool rows, B): the largest B's
+        key = max(eng.staged.graphs, key=lambda k: k[2])
+        B, graph = key[2], eng.staged.graphs[key].graph
     else:
         B, slots = 1, eng.staged.slots
         slot = max(slots, key=lambda s: slots[s].steps)

@@ -87,6 +87,11 @@ ONBOARD = "onboard"
 LMB = "lmb"
 
 
+class InPlaceEviction(RuntimeError):
+    """An eviction would take a page :meth:`LinkedBuffer.read_in_place`
+    handed out, whose slot its caller still reads and writes."""
+
+
 @dataclasses.dataclass
 class PageEntry:
     tier: Optional[str] = None   # None = never written (implicit zeros)
@@ -155,6 +160,10 @@ class LinkedBuffer:
         #: passes the batched accesses (read_many, write_many) took, one
         #: per capacity-sized wave of their pages
         self.waves = 0
+        #: pages :meth:`read_in_place` handed out and
+        #: :meth:`wrote_in_place` has not taken back: no eviction may
+        #: take one, since the caller reads and writes their slots
+        self._in_place: set = set()
         self.degraded = False
         self._closed = False
         host.fm.on_failover(self._on_failover)
@@ -515,6 +524,15 @@ class LinkedBuffer:
             self._lmb_pools[chunk], off, data)
 
     # ------------------------------------------------------------------ paging
+    def _check_evictable(self, victims: Sequence[int]) -> None:
+        """Refuse to evict a page handed out in place: its slot is the
+        caller's until :meth:`wrote_in_place`."""
+        if self._in_place and not self._in_place.isdisjoint(victims):
+            raise InPlaceEviction(
+                f"{self.name}: eviction of pages handed out in place "
+                f"{sorted(self._in_place.intersection(victims))[:4]}: "
+                "nothing may evict them before wrote_in_place")
+
     def _evict_one(self) -> int:
         """Demote one onboard page to the LMB tier; return the freed slot."""
         victim = self.policy.victim()
@@ -522,6 +540,7 @@ class LinkedBuffer:
             raise OutOfMemory(
                 f"{self.name}: onboard tier full and nothing evictable "
                 f"(all {self.onboard_pages} pages pinned)")
+        self._check_evictable([victim])
         entry = self._pages[victim]
         assert entry.tier == ONBOARD
         slot = entry.slot
@@ -559,6 +578,7 @@ class LinkedBuffer:
                 f"{self.name}: onboard tier full and only "
                 f"{len(victims)}/{k} evictable pages "
                 f"(of {self.onboard_pages}; rest pinned)")
+        self._check_evictable(victims)
         if self.degraded:
             raise OutOfMemory(
                 f"{self.name}: degraded mode — working set exceeds onboard "
@@ -745,7 +765,7 @@ class LinkedBuffer:
             freed = self._evict_many(
                 len(faulting) - len(self._onboard_free),
                 sink=(charges, heat))
-        except OutOfMemory:
+        except (OutOfMemory, InPlaceEviction):
             # eviction failed before any pool write: re-claim the exact
             # source slots so every page keeps its pre-call state — but
             # the source reads DID move bytes over the link, so flush
@@ -986,9 +1006,18 @@ class LinkedBuffer:
         if tuple(data.shape) != self.page_shape:
             raise ValueError(
                 f"{self.name}: page shape {data.shape} != {self.page_shape}")
+        self._write(page, data)
+
+    def _write(self, page: int, data: Optional[torch.Tensor]) -> None:
+        """Fault ``page`` in, store ``data`` in its slot (None: the caller
+        already wrote it there) and mark it dirty."""
         slot = self._fault_in(page)
-        self._onboard_pool = self.executor.write_page(
-            self._onboard_pool, slot, data)
+        if data is not None:
+            self._onboard_pool = self.executor.write_page(
+                self._onboard_pool, slot, data)
+        self._mark_dirty(page)
+
+    def _mark_dirty(self, page: int) -> None:
         self._pages[page].dirty = True
         if hasattr(self.policy, "mark_dirty"):
             self.policy.mark_dirty(page, True)
@@ -1010,24 +1039,21 @@ class LinkedBuffer:
         if not pages:
             return self._zeros((0, *self.page_shape)) if out is None else out
         order = list(dict.fromkeys(pages))
-        if len(order) == 1:
-            self.waves += 1
+        slots = self._fault_one_wave(pages, order)
+        if slots is not None and len(order) == 1:
             # a 1-page "burst" IS the scalar path (same bytes, same
             # single-digit arbiter calls) minus the gather machinery;
             # data[None] over torch.stack keeps the decode path at true
             # scalar dispatch cost
-            data = self.read(order[0])
-            self._record_dup_hits(order[0], len(pages) - 1)
+            data = self.executor.read_page(self._onboard_pool, slots[0])
             if out is not None:
                 return out.copy_(data.expand_as(out))
             if len(pages) == 1:
                 return data[None]
             return torch.stack([data] * len(pages))
-        if self._single_wave_fits(order):
-            self.waves += 1
-            slotmap = self._fault_in_many(pages)
-            return self.executor.read_pages(
-                self._onboard_pool, [slotmap[p] for p in pages], out=out)
+        if slots is not None:
+            return self.executor.read_pages(self._onboard_pool, slots,
+                                            out=out)
         # batch exceeds the batch-usable onboard capacity: wave through,
         # capturing each wave's data before the next wave may evict it
         datas: Dict[int, torch.Tensor] = {}
@@ -1050,28 +1076,87 @@ class LinkedBuffer:
             raise ValueError(
                 f"{self.name}: batch shape {data.shape} != "
                 f"{(len(pages), *self.page_shape)}")
+        self._write_many(pages, data)
+
+    def _write_many(self, pages: List[int],
+                    data: Optional[torch.Tensor]) -> None:
+        """:meth:`write_many`'s faults, scatters and dirty marks; with
+        ``data`` None the caller already wrote the pages' slots, and no
+        data moves."""
         for p in dict.fromkeys(pages):
             self._check(p)
         order = list(dict.fromkeys(pages))
         last = {p: i for i, p in enumerate(pages)}
         if len(order) == 1:
             self.waves += 1
-            self.write(order[0], data[last[order[0]]])
+            self._write(order[0], None if data is None
+                        else data[last[order[0]]])
             self._record_dup_hits(order[0], len(pages) - 1)
             return
         for wave, occ in self._iter_waves(pages, order):
             self.waves += 1
             slotmap = self._fault_in_many(occ)
-            self._onboard_pool = self.executor.write_pages(
-                self._onboard_pool, [slotmap[p] for p in wave],
-                data[[last[p] for p in wave]])
+            if data is not None:
+                self._onboard_pool = self.executor.write_pages(
+                    self._onboard_pool, [slotmap[p] for p in wave],
+                    data[[last[p] for p in wave]])
             # dirty-mark per wave: a later wave may evict these pages,
             # and eviction must observe (and clear) their dirty state
             # exactly as the scalar interleave would
             for p in wave:
-                self._pages[p].dirty = True
-                if hasattr(self.policy, "mark_dirty"):
-                    self.policy.mark_dirty(p, True)
+                self._mark_dirty(p)
+
+    def _fault_one_wave(self, pages: List[int],
+                        order: List[int]) -> Optional[List[int]]:
+        """Fault ``pages`` (distinct: ``order``) in as one wave, by the
+        scalar path for a single distinct page, and return each
+        occurrence's onboard slot; None, touching nothing, when they need
+        more than one wave."""
+        if len(order) == 1:
+            self._check(order[0])
+            self.waves += 1
+            slot = self._fault_in(order[0])
+            self._record_dup_hits(order[0], len(pages) - 1)
+            return [slot] * len(pages)
+        if not self._single_wave_fits(order):
+            return None
+        self.waves += 1
+        slotmap = self._fault_in_many(pages)
+        return [slotmap[p] for p in pages]
+
+    def read_in_place(self, pages: Sequence[int]
+                      ) -> Optional[Tuple[List[int], torch.Tensor]]:
+        """:meth:`read_many` without the copy (the port's own addition):
+        fault the pages in exactly as a one-wave ``read_many`` does (the
+        same hits, misses, policy touches, prefetch, link bytes and
+        ``waves``) and return each page's onboard slot and the onboard
+        pool itself, ``(slots, pool)``.  Returns None, touching nothing,
+        when the pages need more than one wave: ``read_many`` waves them
+        through copies.  The pages stay resident until
+        :meth:`wrote_in_place` (an eviction of one raises), and the
+        caller writes only the slots of the pages it gives back there."""
+        pages = list(pages)
+        if not pages:
+            return [], self._onboard_pool
+        order = list(dict.fromkeys(pages))
+        slots = self._fault_one_wave(pages, order)
+        if slots is None:
+            return None
+        self._in_place = set(order)
+        return slots, self._onboard_pool
+
+    def wrote_in_place(self, pages: Sequence[int]) -> None:
+        """Record that the caller wrote ``pages`` in place, through the
+        slots :meth:`read_in_place` handed out: :meth:`write_many`'s
+        fault and hit accounting and dirty marks on them, with no data
+        moved.  Ends the hand-out: the pages may be evicted again."""
+        pages = list(pages)
+        stray = [p for p in dict.fromkeys(pages) if p not in self._in_place]
+        if stray:
+            raise ValueError(f"{self.name}: pages {stray[:4]} were not "
+                             "handed out by read_in_place")
+        self._write_many(pages, None)
+        self._in_place = set()
 
     def gather(self, pages: Sequence[int]) -> torch.Tensor:
         """Stack several logical pages (faulting them in) — kernel feed.

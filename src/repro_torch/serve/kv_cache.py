@@ -49,23 +49,25 @@ class SeqPages:
 class DecodeView:
     """One decode round's batched view over the paged pool.
 
-    ``pool`` is the union of the active sequences' pages materialized
-    onboard with ONE coalesced ``read_many`` burst (unpadded: eager torch
-    recompiles nothing per shape); ``tables`` indexes INTO THE POOL (not
-    logical page ids), so the paged-attention step can consume it
-    directly.  ``pages``
-    is the round's touched-page list — exactly what rides the
-    schedule_prefetch / meter accounting so modeled link traffic
-    reconciles with ``fm.op_bytes()``.
+    ``pool`` is what the paged step reads and writes in place, and
+    ``tables`` index INTO IT (not logical page ids), so the step consumes
+    them directly.  A **direct** round (the union fits the onboard tier in
+    one wave) hands the step the onboard tier's own pool, ``tables`` in
+    its slots: no page is copied.  A round that spills gathers the union
+    with ONE coalesced ``read_many`` (in waves) into a pool of its own,
+    rows ``0..n-1``.  ``pages`` is the round's touched-page list —
+    exactly what rides the schedule_prefetch / meter accounting so
+    modeled link traffic reconciles with ``fm.op_bytes()``.
     """
 
     sids: List[int]
     pool: torch.Tensor       # [P, L, 2, T, KV, hd]
     tables: np.ndarray       # [B, MP] int32 pool indices (-1 pad)
     lengths: np.ndarray      # [B] int32 tokens stored (pre-step)
-    pages: List[int]         # union logical pages backing pool[:n]
+    pages: List[int]         # the union of the sequences' logical pages
     tail_pages: List[int]    # per-sequence logical tail page
     tail_index: List[int]    # per-sequence pool index of the tail page
+    direct: bool             # pool is the onboard tier's own
 
 
 class PagedKVStore:
@@ -103,6 +105,10 @@ class PagedKVStore:
             overlap=overlap, compress_lmb=compress_cold)
         self._seqs: Dict[int, SeqPages] = {}
         self._next_id = 0
+        #: decode views that read the onboard pool in place, and that
+        #: gathered a union too large for one wave into a pool of its own
+        self.direct_rounds = 0
+        self.gathered_rounds = 0
 
     # ------------------------------------------------------------ lifecycle
     def new_seq(self) -> int:
@@ -251,6 +257,8 @@ class PagedKVStore:
         st = self.buf.stats()
         st["sequences"] = len(self._seqs)
         st["page_tokens"] = self.page_tokens
+        st["direct_rounds"] = self.direct_rounds
+        st["gathered_rounds"] = self.gathered_rounds
         return st
 
     def page_table(self, sid: int, max_pages: int) -> np.ndarray:
@@ -296,11 +304,12 @@ class PagedKVStore:
         return seq.pages[idx]
 
     def _traced(self, name: str, access: Callable[[], object],
-                pages: Callable[[object], int]):
-        """``access()`` under span ``name`` (tracing on), which takes the
-        ``pages`` the access touched and the ``hits``, ``misses`` and
-        ``waves`` of the buffer's batched path in it; ``fault.batch`` and
-        the executor's ``exec.*_pages`` spans are its children."""
+                args: Callable[[object], dict]):
+        """``access()`` under span ``name`` (tracing on), which takes
+        ``args(result)`` (the ``pages`` the access touched, and more) and
+        the ``hits``, ``misses`` and ``waves`` of the buffer's batched
+        path in it; ``fault.batch`` and the executor's ``exec.*_pages``
+        spans are its children."""
         tr = self.buf.trace
         if not tr.enabled:
             return access()
@@ -310,71 +319,87 @@ class PagedKVStore:
             out = access()
         span = tr.closed(sid)
         if span is not None:
-            span.args.update(pages=pages(out), hits=c.hits - hits,
-                             misses=c.misses - misses,
-                             waves=self.buf.waves - waves)
+            span.args.update(hits=c.hits - hits, misses=c.misses - misses,
+                             waves=self.buf.waves - waves, **args(out))
         return out
 
     def decode_view(self, sids: List[int], max_pages: int,
                     into: Optional[Callable[[int], torch.Tensor]] = None
                     ) -> DecodeView:
         """One round's :class:`DecodeView` (:meth:`_decode_view`), under a
-        ``kv.decode_view`` span with tracing on (``pages``: the union)."""
+        ``kv.decode_view`` span with tracing on (``pages``: the union;
+        ``direct``: whether the step reads the onboard pool)."""
         return self._traced(
             "kv.decode_view",
             lambda: self._decode_view(sids, max_pages, into),
-            lambda view: len(view.pages))
+            lambda view: dict(pages=len(view.pages), direct=view.direct))
 
     def _decode_view(self, sids: List[int], max_pages: int,
                      into: Optional[Callable[[int], torch.Tensor]] = None
                      ) -> DecodeView:
         """Build one round's batched decode view: tail pages guaranteed,
-        the union of the active sequences' pages faulted onboard with ONE
-        coalesced ``read_many`` burst (metered exactly like any other
-        batched access — hits for onboard-resident pages, link charges
-        only for LMB misses, waves when the union exceeds onboard
-        capacity), and page tables rewritten into pool-index space for
-        the compiled step.  Active sequences must not share a tail page
-        (the engine never forks a mid-flight sequence).  ``into(n)``, if
-        given, returns the ``[n, *page_shape]`` rows the union is gathered
-        into (the staged step's pool buffer, ``serve/staged.py``)."""
+        the union of the active sequences' pages faulted onboard as ONE
+        batched access (metered exactly like any other — hits for
+        onboard-resident pages, link charges only for LMB misses, waves
+        when the union exceeds onboard capacity), and page tables
+        rewritten into pool-index space for the compiled step.
+
+        When the union fits one wave, ``LinkedBuffer.read_in_place``
+        faults it in and the view hands out the onboard pool itself,
+        tables in its slots; otherwise ``read_many`` gathers it, in
+        waves, into ``into(n)`` if given (the staged step's buffer,
+        ``serve/staged.py``: ``[n, *page_shape]`` rows) or a fresh
+        tensor.  Active sequences must not share a tail page (the engine
+        never forks a mid-flight sequence)."""
         for sid in sids:
             self.ensure_tail_page(sid)
         tables, lengths = self.page_tables(sids, max_pages)
-        union: List[int] = []
-        index: Dict[int, int] = {}
-        for sid in sids:
-            for p in self._seqs[sid].pages:
-                if p not in index:
-                    index[p] = len(union)
-                    union.append(p)
-        pool = self.buf.read_many(              # [n, L, 2, T, KV, hd]
-            union, out=into(len(union)) if into else None)
-        pool_tables = np.full_like(tables, -1)
-        mapped = tables >= 0
-        pool_tables[mapped] = [index[p] for p in tables[mapped].tolist()]
+        union = list(dict.fromkeys(
+            p for sid in sids for p in self._seqs[sid].pages))
+        resident = self.buf.read_in_place(union)
+        if resident is not None:
+            rows, pool = resident
+            self.direct_rounds += 1
+        else:
+            pool = self.buf.read_many(          # [n, L, 2, T, KV, hd]
+                union, out=into(len(union)) if into else None)
+            rows = np.arange(len(union))
+            self.gathered_rounds += 1
+        # logical page -> pool row, for every page the tables map
+        row_of = np.full(self.buf.num_pages, -1, np.int32)
+        row_of[union] = rows
+        pool_tables = np.where(tables >= 0, row_of[tables], -1)
         tail_pages = [
             self._seqs[sid].pages[self._seqs[sid].length //
                                   self.page_tokens]
             for sid in sids]
-        tail_index = [index[p] for p in tail_pages]
         return DecodeView(sids=list(sids), pool=pool,
-                          tables=pool_tables,
+                          tables=pool_tables.astype(np.int32),
                           lengths=lengths, pages=union,
-                          tail_pages=tail_pages, tail_index=tail_index)
+                          tail_pages=tail_pages,
+                          tail_index=row_of[tail_pages].tolist(),
+                          direct=resident is not None)
 
     def commit_decode(self, view: DecodeView, pool: torch.Tensor) -> None:
         """Write one decode round's results back: only the tail pages
-        changed (the step scatters the new token's K/V there), so ONE
-        ``write_many`` burst covers the whole batch, and each sequence
-        advances by the token it just stored.  With tracing on, a
-        ``kv.commit_decode`` span (``pages``: the tail pages)."""
+        changed (the step writes the new token's K/V there in place), and
+        each sequence advances by the token it just stored.  A direct
+        view's step wrote the onboard pool itself, so the tail pages are
+        only recorded as written (``LinkedBuffer.wrote_in_place``); a
+        gathered view's tail rows go back with ONE ``write_many`` burst.
+        With tracing on, a ``kv.commit_decode`` span (``pages``: the tail
+        pages)."""
         self._traced("kv.commit_decode",
                      lambda: self._commit_decode(view, pool),
-                     lambda _: len(view.tail_pages))
+                     lambda _: dict(pages=len(view.tail_pages)))
 
     def _commit_decode(self, view: DecodeView, pool: torch.Tensor) -> None:
-        rows = pool[view.tail_index]
-        self.buf.write_many(view.tail_pages, rows)
+        if view.direct:
+            if pool.data_ptr() != view.pool.data_ptr():
+                raise ValueError("a direct view's step writes the onboard "
+                                 "pool in place and returns it")
+            self.buf.wrote_in_place(view.tail_pages)
+        else:
+            self.buf.write_many(view.tail_pages, pool[view.tail_index])
         for sid in view.sids:
             self._seqs[sid].length += 1

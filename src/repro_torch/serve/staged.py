@@ -12,27 +12,32 @@ the eager call issues them: it is neither ``torch.compile`` nor a library
 kernel.
 
 :class:`StagedStep` stages the paged step (``Model.decode_step_paged``),
-one graph per exact batch size B that recurs.  A graph reads fixed
-addresses, so it keeps its inputs in static buffers on the device,
-written before the replay on the stream that replays:
+one graph per exact batch size B that recurs and per pool the step reads.
+A graph reads fixed addresses, so it keeps its inputs in static buffers
+on the device, written before the replay on the stream that replays:
 
 * ``token [slots, 1]``, ``lengths [slots]`` and ``page_table [slots,
   max_pages]`` int32, of which a round of B rows uses rows ``0..B-1``;
-* one pool buffer, into which ``PagedKVStore.decode_view`` gathers the
-  round's ``n`` pages (rows ``0..n-1``, :meth:`StagedStep.rows`) straight
-  from the onboard tier: no second copy of the pages.  Its page table
-  maps no row at or past ``n``, so the rows past it are never read.  The
-  step writes the new token's K/V into the tail pages of this buffer in
-  place, and ``PagedKVStore.commit_decode`` reads them from it.  The
-  buffer starts at the onboard tier's page count (a round that fits one
-  wave of faults has no more pages) and doubles when a round's union
-  outgrows it, up to ``slots * max_pages``; the graphs read the old
-  buffer, so they go, and each recurring B is captured again.
+* the pool the round brings.  When the round's pages fit the onboard
+  tier in one wave, ``PagedKVStore.decode_view`` hands over the tier's
+  own onboard pool, which lives at one address for the buffer's life:
+  the page table holds onboard slots, and the step writes the new
+  token's K/V into the tail pages' slots in place, so no page is copied
+  before or after the step.  A round whose pages spill is gathered into
+  a pool buffer of this class's own (rows ``0..n-1``,
+  :meth:`StagedStep.rows`), made at the first such round at the onboard
+  tier's page count and doubled when a round's union outgrows it, up to
+  ``slots * max_pages``; its page table maps no row at or past ``n``.
+
+A graph is kept per (pool address, pool rows, B): it is valid for any
+pool at that address and shape.  The buffer's regrowth, or a pool from
+outside that comes at a new address, drops the graphs that read the old
+one, and each recurring B is captured again against the new one.
 
 The batch is never padded: ``moe_apply`` sizes expert capacity from the
 token count and ranks claims by position, so padded rows would take
 capacity and change an MoE model's drops.  Where ``jax.jit`` keeps one
-executable per input shape (B, and the pool's rows ``n``), the buffer
+executable per input shape (B, and the pool's rows ``n``), a fixed pool
 leaves one graph per B.
 
 :class:`StagedSlots` stages the dense-slot step (``Model.decode_step``),
@@ -84,7 +89,8 @@ span of its mode, ``staged.eager``, ``staged.capture`` or
 slot); the replay that gives a capture's result is a ``staged.replay``
 span inside its ``staged.capture``, so each mode's spans count what its
 counter counts (``eager_*``, ``captures``, ``replays``).  A pool-buffer
-regrowth is a ``staged.regrow`` event with the old and new row counts.
+regrowth, or a pool from outside at a new address, is a
+``staged.regrow`` event with the old and new row counts.
 """
 
 from __future__ import annotations
@@ -247,11 +253,12 @@ class _Staged:
 
 class StagedStep(_Staged):
     """``step`` (``Model.decode_step_paged``) behind static input buffers,
-    captured once per recurring batch size B on a CUDA device.  Called as
-    the step is, ``(params, pool, page_table, lengths, token) -> (logits,
-    pool)``, where ``pool`` is :meth:`rows` of the round's page count and
-    the returned pool is the whole buffer (rows ``0..n-1`` are the round's
-    pages, the tail pages updated in place)."""
+    captured once per recurring batch size B and pool on a CUDA device.
+    Called as the step is, ``(params, pool, page_table, lengths, token)
+    -> (logits, pool)``, where ``pool`` is the onboard tier's pool (a
+    round that fits one wave) or :meth:`rows` of the round's page count
+    (a round that spilled); the returned pool is the one the step read
+    and wrote in place (for :meth:`rows`, the whole buffer)."""
 
     FN = "step"
 
@@ -268,13 +275,18 @@ class StagedStep(_Staged):
         self.token = torch.zeros((slots, 1), **i32)
         self.lengths = torch.zeros((slots,), **i32)
         self.page_table = torch.full((slots, max_pages), -1, **i32)
-        #: the pool buffer, made at the first round (:meth:`rows`)
+        #: the pool buffer for rounds that spill, made at the first such
+        #: round (:meth:`rows`)
         self.pool: Optional[torch.Tensor] = None
-        self.graphs: Dict[int, _Graph] = {}
+        #: (address, rows) of the last pool that came from outside
+        self._outside: Optional[Tuple[int, int]] = None
+        #: graphs by (pool address, pool rows, B)
+        self.graphs: Dict[Tuple[int, int, int], _Graph] = {}
         #: rounds run at each batch size (eager, captured or replayed)
         self.rounds: Dict[int, int] = {}
         self.eager_rounds = 0
-        #: times the pool buffer was made or doubled
+        #: times the graphs' pool moved: the pool buffer made or doubled,
+        #: or a pool from outside at a new address
         self.regrowths = 0
 
     def stats(self) -> dict:
@@ -284,11 +296,28 @@ class StagedStep(_Staged):
                 "pool_pages": 0 if self.pool is None else len(self.pool),
                 "regrowths": self.regrowths, "capture_s": self.capture_s}
 
+    def _moved(self, old: Optional[Tuple[int, int]], rows: int) -> None:
+        """A pool the graphs read moved (``old``: its address and rows,
+        None if there was none): drop the graphs that read it, and count
+        the move."""
+        if old is not None:
+            self.graphs = {k: g for k, g in self.graphs.items()
+                           if k[:2] != old}
+            # a graph memory pool whose graphs are all gone cannot take
+            # another capture: the next graphs get a pool of their own
+            if not self.graphs and self._mempool is not None:
+                self._mempool = torch.cuda.graph_pool_handle()
+        self.regrowths += 1
+        tr = self.trace
+        if tr.enabled:
+            tr.event("staged.regrow", op="serve", fn=self.FN,
+                     rows_from=0 if old is None else old[1], rows_to=rows)
+
     def rows(self, n: int) -> torch.Tensor:
         """Rows ``0..n-1`` of the pool buffer, for ``decode_view`` to
-        gather a round's ``n`` pages into; makes or doubles the buffer
-        (dropping the graphs, which read the old one) when ``n`` does not
-        fit."""
+        gather a spilling round's ``n`` pages into; makes or doubles the
+        buffer (dropping the graphs that read the old one) when ``n``
+        does not fit."""
         limit = self.slots * self.max_pages
         if n > limit:
             raise ValueError(f"a round of {n} pages, {self.slots} slots of "
@@ -298,54 +327,59 @@ class StagedStep(_Staged):
             size = max(self.min_pages, have)
             while size < n:
                 size *= 2
-            # a graph memory pool whose graphs are all gone cannot take
-            # another capture: the next graphs get a pool of their own
-            self.graphs.clear()
-            if self._mempool is not None:
-                self._mempool = torch.cuda.graph_pool_handle()
+            old = None if self.pool is None else (self.pool.data_ptr(),
+                                                  have)
             self.pool = None
             self.pool = torch.empty((min(size, limit), *self.page_shape),
                                     dtype=self.dtype, device=self.device)
-            self.regrowths += 1
-            tr = self.trace
-            if tr.enabled:
-                tr.event("staged.regrow", op="serve", fn=self.FN,
-                         rows_from=have, rows_to=len(self.pool))
+            self._moved(old, len(self.pool))
         return self.pool[:n]
 
-    def _stage(self, pool, page_table, lengths, token) -> int:
-        """Check that the round's pages are in the pool buffer and copy
-        the rest of its inputs into the static buffers (on the current
-        stream, the one that replays); returns B."""
+    def _stage(self, pool, page_table, lengths, token) -> tuple:
+        """Check the round's pool (the pool buffer's rows or a whole pool
+        from outside) and copy the rest of its inputs into the static
+        buffers (on the current stream, the one that replays); returns B
+        and the pool the step reads."""
         B = token.shape[0]
         if not 0 < B <= self.slots:
             raise ValueError(f"a batch of {B} rows, {self.slots} slots")
-        if self.pool is None or pool.data_ptr() != self.pool.data_ptr() \
-                or len(pool) > len(self.pool):
-            raise ValueError("the round's pages must be gathered into "
-                             "StagedStep.rows(n)")
+        if tuple(pool.shape[1:]) != self.page_shape or \
+                pool.dtype != self.dtype or not pool.is_contiguous():
+            raise ValueError(f"a pool {tuple(pool.shape)} {pool.dtype}, "
+                             f"want contiguous [P, *{self.page_shape}] "
+                             f"{self.dtype}")
+        if self.pool is not None and pool.data_ptr() == self.pool.data_ptr():
+            if len(pool) > len(self.pool):
+                raise ValueError("the round's pages must be gathered into "
+                                 "StagedStep.rows(n)")
+            pool = self.pool
+        elif self._outside != (pool.data_ptr(), len(pool)):
+            if self._outside is not None:
+                self._moved(self._outside, len(pool))
+            self._outside = (pool.data_ptr(), len(pool))
         if tuple(page_table.shape) != (B, self.max_pages):
             raise ValueError(f"page_table {tuple(page_table.shape)}, want "
                              f"({B}, {self.max_pages})")
         self.token[:B].copy_(token)
         self.lengths[:B].copy_(lengths)
         self.page_table[:B].copy_(page_table)
-        return B
+        return B, pool
 
     def __call__(self, params, pool, page_table, lengths, token):
         self._check_params(params)
-        B = self._stage(pool, page_table, lengths, token)
+        B, pool = self._stage(pool, page_table, lengths, token)
         self.rounds[B] = self.rounds.get(B, 0) + 1
-        args = (params, self.pool, self.page_table[:B], self.lengths[:B],
+        args = (params, pool, self.page_table[:B], self.lengths[:B],
                 self.token[:B])
         if self.device.type == "cuda":
-            staged = self.graphs.get(B)
+            key = (pool.data_ptr(), len(pool), B)
+            staged = self.graphs.get(key)
             if staged is None and self.rounds[B] > 1:
                 with self._span("capture", B):
-                    staged = self.graphs[B] = self._capture(args)
-                    return self._replay(staged, B), self.pool
+                    staged = self.graphs[key] = self._capture(args)
+                    return self._replay(staged, B), pool
             if staged is not None:
-                return self._replay(staged, B), self.pool
+                return self._replay(staged, B), pool
         self.eager_rounds += 1
         with self._span("eager", B):
             return self.step(*args)

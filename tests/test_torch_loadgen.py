@@ -147,10 +147,17 @@ def sweep(pkg, params, tenants, *, fault=None, drain=False, arch=None,
     eng, system, clock, inj = engine(pkg, params, arch or "qwen2-1.5b",
                                      plan=plan, retry=retry, **ecfg)
     report = serve.run_sweep(eng, trace, clock, drain_idle_gaps=drain)
+    engine_stats = report.engine_stats
+    if pkg == "torch":
+        # the port's KV stats add how each paged round read its pages
+        kv = dict(engine_stats["kv"])
+        rounds = [kv.pop(k) for k in ("direct_rounds", "gathered_rounds")]
+        assert sum(rounds) == eng.paged_rounds
+        engine_stats = dict(engine_stats, kv=kv)
     return {
         "per_tenant": report.per_tenant,
         "totals": report.totals,
-        "engine_stats": report.engine_stats,
+        "engine_stats": engine_stats,
         "table": report.table(),
         "streams": {r.req_id: (r.state, r.cancel_reason, r.out_tokens)
                     for r in eng.requests.values()},

@@ -156,9 +156,21 @@ def test_round_span_tree(model_params, onboard):
     assert len(named("staged.eager", fn="step")) == st.eager_rounds
     assert sp.captures == st.captures == sp.replays == st.replays == 0
     assert not named("staged.capture") and not named("staged.replay")
-    assert [(s.args["rows_from"], s.args["rows_to"])
-            for s in named("staged.regrow")] == [(0, len(st.pool))]
-    assert st.regrowths == 1
+    # each view read the onboard pool in place or, spilling, gathered;
+    # the pool buffer is made at the first spill only
+    kv = eng.kv.stats()
+    views = named("kv.decode_view")
+    assert kv["direct_rounds"] + kv["gathered_rounds"] == eng.paged_rounds
+    assert sum(s.args["direct"] for s in views) == kv["direct_rounds"]
+    assert all(s.args["waves"] == 1 for s in views if s.args["direct"])
+    regrows = [(s.args["rows_from"], s.args["rows_to"])
+               for s in named("staged.regrow")]
+    if onboard == 8:     # every union fits: nothing gathered, no buffer
+        assert kv["gathered_rounds"] == 0 and st.pool is None
+        assert regrows == [] and st.regrowths == 0
+    else:
+        assert kv["gathered_rounds"] > 0
+        assert regrows == [(0, len(st.pool))] and st.regrowths == 1
 
 
 class _FakeGraph:
