@@ -1413,8 +1413,8 @@ def check_paged(res, cfg) -> None:
         raise AssertionError(f"{cfg.name}: no paged decode round ran")
     st = res["staged"]
     if not st or st["captures"] < 1 or st["replays"] < 1 or \
-            st["eager_rounds"] != len(st["rounds"]) or \
-            st["eager_rounds"] + st["replays"] != res["paged_rounds"]:
+            st["eager_calls"] != len(st["calls"]) or \
+            st["eager_calls"] + st["replays"] != res["paged_rounds"]:
         raise AssertionError(f"{cfg.name}: the paged step did not run "
                              f"through captured graphs: {st}")
     for name in PAGED_KERNELS:
@@ -1429,9 +1429,9 @@ def check_slots(res, cfg) -> None:
     """The dense slot path staged: each slot's first step ran eagerly, its
     second was captured, and every later one replayed."""
     st = res["staged"]
-    steps = list(st["steps"].values()) if st else []
+    steps = list(st["calls"].values()) if st else []
     if not st or res["decode_path"] != "dense" or st["replays"] < 1 or \
-            st["eager_steps"] != len(steps) or \
+            st["eager_calls"] != len(steps) or \
             st["captures"] != sum(n > 1 for n in steps) or \
             st["replays"] != sum(steps) - len(steps):
         raise AssertionError(f"{cfg.name}: the dense slot step did not run "
@@ -1718,7 +1718,7 @@ def prefill_text(staged) -> str:
     a length (time that the second run's tokens/s includes)."""
     p1, p2 = staged["first"]["staged_prefill"], \
         staged["second"]["staged_prefill"]
-    return (f"prefill: first run {p1['eager_prefills']} eager, "
+    return (f"prefill: first run {p1['eager_calls']} eager, "
             f"{p1['captures']} captures; second run "
             f"{p2['captures'] - p1['captures']} captures "
             f"({p2['capture_s'] - p1['capture_s']:.3f} s of host time), "
@@ -1795,9 +1795,9 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
         key = max(eng.staged.graphs, key=lambda k: k[2])
         B, graph = key[2], eng.staged.graphs[key].graph
     else:
-        B, slots = 1, eng.staged.slots
-        slot = max(slots, key=lambda s: slots[s].steps)
-        graph = slots[slot].graph.graph
+        # graphs by slot: the most stepped slot's
+        calls = eng.staged.calls
+        B, graph = 1, eng.staged.graphs[max(calls, key=calls.get)].graph
     ops_ = device_ops(graph.replay)    # not counted: no wrapper runs
     names = [n for n, _ in ops_]
     busy = sum(us for _, us in ops_)
@@ -1895,8 +1895,8 @@ def eager_and_staged(torch, cfg, flags, prompts, ecfg, pairs) -> tuple:
     # the second run) captured
     lengths = len({len(p) for p, _ in prompts})
     p1, p2 = s1["staged_prefill"], staged["second"]["staged_prefill"]
-    if p1["eager_prefills"] != lengths or p2["captures"] != lengths or \
-            p2["eager_prefills"] != lengths:
+    if p1["eager_calls"] != lengths or p2["captures"] != lengths or \
+            p2["eager_calls"] != lengths:
         raise AssertionError(f"{cfg.name}: staged prefill {p1} then {p2}")
     return eager, staged, fresh
 
@@ -1935,11 +1935,11 @@ def staged_phase(torch, lens, news, card) -> dict:
                                  f"{s1['launches']} times, not {L} x "
                                  f"{s1['paged_rounds']}")
         st1, st2 = s1["staged"], staged["second"]["staged"]
-        recurring = sum(1 for n in st1["rounds"].values() if n > 1)
-        if st1["eager_rounds"] != len(st1["rounds"]) or \
-                st1["eager_rounds"] + st1["replays"] != \
+        recurring = sum(1 for n in st1["calls"].values() if n > 1)
+        if st1["eager_calls"] != len(st1["calls"]) or \
+                st1["eager_calls"] + st1["replays"] != \
                 s1["paged_rounds"] or st1["captures"] < recurring or \
-                st2["eager_rounds"] != st1["eager_rounds"] or \
+                st2["eager_calls"] != st1["eager_calls"] or \
                 st2["replays"] - st1["replays"] != \
                 staged["second"]["paged_rounds"]:
             raise AssertionError(f"{cfg.name}: captures and replays {st1} "
@@ -1951,7 +1951,7 @@ def staged_phase(torch, lens, news, card) -> dict:
         print(f"phase 3s: {cfg.name}, {L} layers, eager and staged: equal "
               f"streams, link bytes {s1['link_bytes']}, hits {s1['hits']}, "
               f"misses {s1['misses']}, launches {s1['launches']}; batch "
-              f"sizes {st1['rounds']}: first run {st1['eager_rounds']} "
+              f"sizes {st1['calls']}: first run {st1['eager_calls']} "
               f"eager rounds (each batch size's first), {st1['captures']} "
               f"captures ({st1['capture_s']:.3f} s of host time), "
               f"{st1['replays']} replays; second run "
@@ -2025,13 +2025,13 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
                                  f"{s1['paged_rounds']} paged rounds; want "
                                  f"{kernel} {L} x {len(prompts)}, no paged")
         st1, st2 = s1["staged"], staged["second"]["staged"]
-        steps = list(st1["steps"].values())
-        if st1["eager_steps"] != len(steps) or \
+        steps = list(st1["calls"].values())
+        if st1["eager_calls"] != len(steps) or \
                 st1["captures"] != sum(n > 1 for n in steps) or \
                 sum(steps) != s1["decode_steps"] or \
                 st1["replays"] != sum(steps) - len(steps) or \
                 st2["captures"] != st1["captures"] or \
-                st2["eager_steps"] != st1["eager_steps"] or \
+                st2["eager_calls"] != st1["eager_calls"] or \
                 st2["replays"] - st1["replays"] != \
                 staged["second"]["decode_steps"]:
             raise AssertionError(f"{cfg.name}: eager steps, captures and "
@@ -2044,7 +2044,7 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
               f"and staged: equal streams, link bytes {s1['link_bytes']}, "
               f"hits {s1['hits']}, misses {s1['misses']}, launches {got}; "
               f"{st1['slots']} slots, steps a slot {steps}: first run "
-              f"{st1['eager_steps']} eager steps, {st1['captures']} "
+              f"{st1['eager_calls']} eager steps, {st1['captures']} "
               f"captures ({st1['capture_s']:.3f} s of host time), "
               f"{st1['replays']} replays; second run "
               f"{st2['captures'] - st1['captures']} captures, "
@@ -2183,11 +2183,11 @@ def staged_prefill_phase(torch, lens, card) -> dict:
                                  f"{staged['launches'].get(kernel)} times, "
                                  f"not {L} x {n} x {PREFILL_PASSES}")
         sp = [p["staged_prefill"] for p in staged["passes"]]
-        if (sp[0]["eager_prefills"], sp[0]["captures"], sp[0]["replays"]) \
+        if (sp[0]["eager_calls"], sp[0]["captures"], sp[0]["replays"]) \
                 != (n, 0, 0) or \
-                (sp[1]["eager_prefills"], sp[1]["captures"],
+                (sp[1]["eager_calls"], sp[1]["captures"],
                  sp[1]["replays"]) != (n, n, n) or \
-                (sp[2]["eager_prefills"], sp[2]["captures"],
+                (sp[2]["eager_calls"], sp[2]["captures"],
                  sp[2]["replays"]) != (n, n, 2 * n):
             raise AssertionError(f"{arch}: eager prefills, captures and "
                                  f"replays by pass: {sp}")
@@ -2197,7 +2197,7 @@ def staged_prefill_phase(torch, lens, card) -> dict:
               f"lengths x {PREFILL_PASSES} passes: equal streams, link "
               f"bytes {staged['link_bytes']}, hits {staged['hits']}, misses "
               f"{staged['misses']}, launches {staged['launches']}; pass 1 "
-              f"{sp[0]['eager_prefills']} eager, pass 2 "
+              f"{sp[0]['eager_calls']} eager, pass 2 "
               f"{sp[1]['captures']} captures ({sp[2]['capture_s']:.3f} s "
               f"of host time), pass 3 {sp[2]['replays'] - sp[1]['replays']}"
               f" replays; prefill graphs' pool {staged['pool_bytes']:,} B")
@@ -2497,10 +2497,10 @@ def sync_refusal_phase(torch) -> None:
     eng.staged_prefill.step = syncing_prefill
     msg = refused(eng, "prefill")
     reqs = [eng.requests[r] for r in (0, 1)]
-    if eng.staged_prefill.captures or eng.staged_prefill.eager_prefills != 1 \
+    if eng.staged_prefill.captures or eng.staged_prefill.eager_calls != 1 \
             or [len(r.out_tokens) for r in reqs] != [1, 0]:
         raise AssertionError(f"captures {eng.staged_prefill.captures}, eager "
-                             f"prefills {eng.staged_prefill.eager_prefills}, "
+                             f"prefills {eng.staged_prefill.eager_calls}, "
                              f"tokens {[r.out_tokens for r in reqs]} after a "
                              "failed capture")
     print(f"phase 9: a host sync in the staged prefill ran in the length's "
@@ -2517,10 +2517,10 @@ def sync_refusal_phase(torch) -> None:
     eng.staged.step = syncing_dense
     msg = refused(eng, "dense slot step")
     req = eng.requests[0]
-    if eng.staged.captures or eng.staged.eager_steps != 1 or \
+    if eng.staged.captures or eng.staged.eager_calls != 1 or \
             len(req.out_tokens) != 2:
         raise AssertionError(f"captures {eng.staged.captures}, eager steps "
-                             f"{eng.staged.eager_steps}, tokens "
+                             f"{eng.staged.eager_calls}, tokens "
                              f"{req.out_tokens} after a failed capture")
     print(f"phase 9: a host sync in the staged dense slot step ran in the "
           f"slot's eager first step and raised at the second step's "
@@ -2568,10 +2568,10 @@ def sync_refusal_phase(torch) -> None:
     eng.staged.step = syncing
     msg = refused(eng, "paged step")
     if eng.staged.captures or eng.paged_rounds != 1 or \
-            eng.staged.eager_rounds != 1:
+            eng.staged.eager_calls != 1:
         raise AssertionError(f"captures {eng.staged.captures}, paged rounds "
                              f"{eng.paged_rounds}, eager rounds "
-                             f"{eng.staged.eager_rounds} after a failed "
+                             f"{eng.staged.eager_calls} after a failed "
                              "capture")
     print(f"phase 9: a host sync in the staged paged step ran in the eager "
           f"first round and raised at the second round's capture ({msg}); "
@@ -3114,7 +3114,7 @@ def train_phase(torch, card: str) -> dict:
         if kw["staged"]:
             st = out["staged"]
             print(f"    graph pool {st['pool_bytes']:,} B; "
-                  f"{st['eager_steps']} eager step, {st['captures']} "
+                  f"{st['eager_calls']} eager step, {st['captures']} "
                   f"capture ({st['capture_s']:.2f} s of host), "
                   f"{st['replays']} replays (the capture's own included)")
             modes = [r["mode"] for r in log]

@@ -38,7 +38,7 @@ import dataclasses
 import time
 import warnings
 from collections import deque
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -607,19 +607,56 @@ class ServeEngine:
               if tr.enabled else NULL_SPAN):
             return self._decode_round_dense()
 
+    def _drop(self, slot: int, req: Request, reason: str) -> None:
+        """Cancel the active ``req`` for ``reason`` and free its slot."""
+        self._cancel(req, reason)
+        del self.active[slot]
+        self._slot_free.append(slot)
+
+    def _unexpired(self) -> Iterator[tuple]:
+        """The active (slot, request) pairs in slot order, each checked
+        against its deadline as it comes: one past it is cancelled
+        mid-flight, pulled out of its decode slot with its KV sequence
+        freed at once, and not yielded."""
+        for slot, req in list(self.active.items()):
+            if (req.deadline_s is not None
+                    and self.clock() >= req.deadline_s):
+                self._drop(slot, req, "deadline")
+            else:
+                yield slot, req
+
+    def _take_token(self, req: Request, tok: int) -> None:
+        """Append ``req``'s decoded token and time it since the last."""
+        req.out_tokens.append(tok)
+        now = self.clock()
+        if req.last_token_at is not None:
+            gap = now - req.last_token_at
+            self.metrics.observe(f"serve.itl.{req.tenant}", gap)
+            tr = self.trace
+            if tr.enabled:
+                tr.event("token", tenant=req.tenant, op="serve",
+                         req=req.req_id, gap_s=gap)
+        req.last_token_at = now
+
+    def _finish_if_done(self, slot: int, req: Request) -> bool:
+        """Finish ``req`` if it has its ``max_new_tokens``."""
+        if len(req.out_tokens) < req.max_new_tokens:
+            return False
+        self._finish_active(slot, req)
+        return True
+
+    def _round_dt(self, finished: int, round_t0: float) -> float:
+        """A round's compute-window duration (:meth:`_decode_round`)."""
+        if self.ecfg.round_time_s is not None:
+            return (self.ecfg.round_time_s if self.active or finished
+                    else 0.0)
+        return time.monotonic() - round_t0
+
     def _decode_round_dense(self) -> tuple:
         """The per-request dense-slot round (:meth:`_decode_round`)."""
         round_t0 = time.monotonic()
         finished = 0
-        for slot, req in list(self.active.items()):
-            if (req.deadline_s is not None
-                    and self.clock() >= req.deadline_s):
-                # mid-flight cancellation: pull the request out of its
-                # decode slot and free its KV sequence immediately
-                self._cancel(req, "deadline")
-                del self.active[slot]
-                self._slot_free.append(slot)
-                continue
+        for slot, req in self._unexpired():
             tok = torch.tensor([[req.out_tokens[-1]]], dtype=torch.int32,
                                device=self.device)
             if self.staged is not None:
@@ -632,16 +669,7 @@ class ServeEngine:
             with (tr.span("serve.readback", op="serve", req=req.req_id)
                   if tr.enabled else NULL_SPAN):
                 nxt = int(torch.argmax(logits[0]))
-            req.out_tokens.append(nxt)
-            now = self.clock()
-            if req.last_token_at is not None:
-                gap = now - req.last_token_at
-                self.metrics.observe(f"serve.itl.{req.tenant}", gap)
-                tr = self.trace
-                if tr.enabled:
-                    tr.event("token", tenant=req.tenant, op="serve",
-                             req=req.req_id, gap_s=gap)
-            req.last_token_at = now
+            self._take_token(req, nxt)
             kv_new = self._decode_kv_tail(
                 cache, self.kv.seq(req.seq_id).length)
             try:
@@ -652,17 +680,10 @@ class ServeEngine:
             except OutOfMemory:
                 # the pool shrank under us (failover mid-decode): free
                 # what the sequence still holds and release the slot
-                self._cancel(req, "capacity")
-                del self.active[slot]
-                self._slot_free.append(slot)
+                self._drop(slot, req, "capacity")
                 continue
-            if len(req.out_tokens) >= req.max_new_tokens:
-                self._finish_active(slot, req)
-                finished += 1
-        if self.ecfg.round_time_s is not None:
-            return finished, (self.ecfg.round_time_s if self.active
-                              or finished else 0.0)
-        return finished, time.monotonic() - round_t0
+            finished += self._finish_if_done(slot, req)
+        return finished, self._round_dt(finished, round_t0)
 
     def _finish_active(self, slot: int, req: Request) -> None:
         """Terminal bookkeeping for a request completing in its slot."""
@@ -690,15 +711,7 @@ class ServeEngine:
         round_t0 = time.monotonic()
         finished = 0
         live: List[tuple] = []
-        for slot, req in list(self.active.items()):
-            if (req.deadline_s is not None
-                    and self.clock() >= req.deadline_s):
-                # mid-flight cancellation: pull the request out of its
-                # decode slot and free its KV sequence immediately
-                self._cancel(req, "deadline")
-                del self.active[slot]
-                self._slot_free.append(slot)
-                continue
+        for slot, req in self._unexpired():
             if self.kv.seq(req.seq_id).length >= self.ecfg.max_seq_len:
                 # context window exhausted: the dense slot cache would
                 # silently ring-wrap here; the paged path finishes the
@@ -722,23 +735,9 @@ class ServeEngine:
                                      pool=int(view.pool.shape[0]),
                                      **self._pages_read(view.lengths))
         for i, (slot, req) in enumerate(live):
-            req.out_tokens.append(nxt_tokens[i])
-            now = self.clock()
-            if req.last_token_at is not None:
-                gap = now - req.last_token_at
-                self.metrics.observe(f"serve.itl.{req.tenant}", gap)
-                tr = self.trace
-                if tr.enabled:
-                    tr.event("token", tenant=req.tenant, op="serve",
-                             req=req.req_id, gap_s=gap)
-            req.last_token_at = now
-            if len(req.out_tokens) >= req.max_new_tokens:
-                self._finish_active(slot, req)
-                finished += 1
-        if self.ecfg.round_time_s is not None:
-            return finished, (self.ecfg.round_time_s if self.active
-                              or finished else 0.0)
-        return finished, time.monotonic() - round_t0
+            self._take_token(req, nxt_tokens[i])
+            finished += self._finish_if_done(slot, req)
+        return finished, self._round_dt(finished, round_t0)
 
     def _pages_read(self, lengths) -> Dict[str, int]:
         """The pages the round's paged step reads for rows of ``lengths``
@@ -778,9 +777,7 @@ class ServeEngine:
             # round's working set can no longer be materialized —
             # cancel the batch instead of crashing the engine
             for slot, req in live:
-                self._cancel(req, "capacity")
-                del self.active[slot]
-                self._slot_free.append(slot)
+                self._drop(slot, req, "capacity")
             return None, None
         return view, nxt_tokens
 

@@ -62,11 +62,12 @@ a cache of its own.  The engine copies what it needs out of that cache
 before the next prefill: its pages into the KV store, or its whole cache
 into a decode slot's (:meth:`StagedSlots.seat`).
 
-All three count calls the same way.  A batch size's (a slot's, a prompt
-length's) first call runs eagerly on the static buffers, so a shape seen
-once costs what the eager call costs (and that call is the warm-up
-capture needs).  The second captures the call, with nothing run, and
-replays the graph for that call's result: its in-place writes happen
+All staged functions follow one rule (:meth:`_Staged._run`), keyed by
+the batch size, the slot, the prompt length (or, for the train step,
+nothing).  A key's first call runs eagerly on the static buffers, so a
+shape seen once costs what the eager call costs (and that call is the
+warm-up capture needs).  The second captures the call, with nothing run,
+and replays the graph for that call's result: its in-place writes happen
 once.  Every later call replays.  All graphs of a staged function share
 one memory pool (``torch.cuda.graph_pool_handle``): they never run at
 once, and each call's logits are read before the next replay.  A capture
@@ -88,7 +89,7 @@ span of its mode, ``staged.eager``, ``staged.capture`` or
 ``train``) and ``key`` (the prompt length S, the batch size B or the
 slot); the replay that gives a capture's result is a ``staged.replay``
 span inside its ``staged.capture``, so each mode's spans count what its
-counter counts (``eager_*``, ``captures``, ``replays``).  A pool-buffer
+counter counts (``eager_calls``, ``captures``, ``replays``).  A pool-buffer
 regrowth, or a pool from outside at a new address, is a
 ``staged.regrow`` event with the old and new row counts.
 """
@@ -153,8 +154,9 @@ class _Staged:
     """What every staged function shares (the engine's three here, the
     train step in ``repro_torch.train.staged``): the side stream their
     captures use (one per device, :func:`side_stream`), a memory pool per
-    function, the params address check, and capture and replay with the
-    counts a graph carries."""
+    function, the params address check, capture and replay with the
+    counts a graph carries, and the rule that picks a call's mode
+    (:meth:`_run`)."""
 
     #: what the spans call the staged function (``fn``)
     FN = ""
@@ -164,6 +166,12 @@ class _Staged:
         self.device = torch.device(device)
         #: the tracer a call's span goes to (the engine sets its own)
         self.trace: SpanTracer = GLOBAL_TRACER
+        #: graphs by the key each is kept under
+        self.graphs: Dict[object, _Graph] = {}
+        #: calls by the key each is counted under (eager, captured or
+        #: replayed)
+        self.calls: Dict[object, int] = {}
+        self.eager_calls = 0
         self.replays = 0
         #: graphs captured
         self.captures = 0
@@ -174,6 +182,37 @@ class _Staged:
         if self.device.type == "cuda":
             self._mempool = torch.cuda.graph_pool_handle()
             self._stream = side_stream(self.device)
+
+    def stats(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays,
+                "eager_calls": self.eager_calls,
+                "calls": dict(sorted(self.calls.items())),
+                "capture_s": self.capture_s}
+
+    def _run(self, key, graph_key, args) -> Tuple[object, str]:
+        """``self.step(*args)`` by the rule, counted under ``key``, its
+        graph kept under ``graph_key``: ``(output, mode)``, the output as
+        a graph keeps it (:meth:`_output`) and the mode ``"eager"``,
+        ``"capture"`` or ``"replay"``.  The key's graph replays if there
+        is one; else a call after the key's first captures (the replay
+        inside gives the output) and the first runs eagerly.  On the CPU
+        every call runs eagerly."""
+        n = self.calls[key] = self.calls.get(key, 0) + 1
+        if self.device.type == "cuda":
+            staged = self.graphs.get(graph_key)
+            if staged is not None:
+                return self._replay(staged, key), "replay"
+            if n > 1:
+                with self._span("capture", key):
+                    staged = self.graphs[graph_key] = self._capture(args)
+                    return self._replay(staged, key), "capture"
+        self.eager_calls += 1
+        with self._span("eager", key):
+            return self._output(self._eager(args)), "eager"
+
+    def _eager(self, args):
+        """A call run eagerly."""
+        return self.step(*args)
 
     def _check_params(self, params) -> None:
         addresses = _addresses(params)
@@ -280,21 +319,14 @@ class StagedStep(_Staged):
         self.pool: Optional[torch.Tensor] = None
         #: (address, rows) of the last pool that came from outside
         self._outside: Optional[Tuple[int, int]] = None
-        #: graphs by (pool address, pool rows, B)
-        self.graphs: Dict[Tuple[int, int, int], _Graph] = {}
-        #: rounds run at each batch size (eager, captured or replayed)
-        self.rounds: Dict[int, int] = {}
-        self.eager_rounds = 0
         #: times the graphs' pool moved: the pool buffer made or doubled,
         #: or a pool from outside at a new address
         self.regrowths = 0
 
     def stats(self) -> dict:
-        return {"captures": self.captures, "replays": self.replays,
-                "eager_rounds": self.eager_rounds,
-                "rounds": dict(sorted(self.rounds.items())),
+        return {**super().stats(),
                 "pool_pages": 0 if self.pool is None else len(self.pool),
-                "regrowths": self.regrowths, "capture_s": self.capture_s}
+                "regrowths": self.regrowths}
 
     def _moved(self, old: Optional[Tuple[int, int]], rows: int) -> None:
         """A pool the graphs read moved (``old``: its address and rows,
@@ -366,31 +398,19 @@ class StagedStep(_Staged):
         return B, pool
 
     def __call__(self, params, pool, page_table, lengths, token):
+        """Counted by B, its graph kept by (pool address, pool rows, B):
+        a B seen before whose pool moved is captured again."""
         self._check_params(params)
         B, pool = self._stage(pool, page_table, lengths, token)
-        self.rounds[B] = self.rounds.get(B, 0) + 1
         args = (params, pool, self.page_table[:B], self.lengths[:B],
                 self.token[:B])
-        if self.device.type == "cuda":
-            key = (pool.data_ptr(), len(pool), B)
-            staged = self.graphs.get(key)
-            if staged is None and self.rounds[B] > 1:
-                with self._span("capture", B):
-                    staged = self.graphs[key] = self._capture(args)
-                    return self._replay(staged, B), pool
-            if staged is not None:
-                return self._replay(staged, B), pool
-        self.eager_rounds += 1
-        with self._span("eager", B):
-            return self.step(*args)
+        return self._run(B, (pool.data_ptr(), len(pool), B), args)[0], pool
 
 
 @dataclasses.dataclass
 class _Slot:
     cache: Dict[str, torch.Tensor]  # the slot's static cache, B = 1
     token: torch.Tensor             # [1, 1] int32
-    steps: int = 0                  # steps run (eager, captured, replayed)
-    graph: Optional[_Graph] = None
 
 
 class StagedSlots(_Staged):
@@ -407,13 +427,9 @@ class StagedSlots(_Staged):
         super().__init__(step, device)
         self.init_cache = init_cache
         self.slots: Dict[int, _Slot] = {}
-        self.eager_steps = 0
 
     def stats(self) -> dict:
-        return {"captures": self.captures, "replays": self.replays,
-                "eager_steps": self.eager_steps,
-                "steps": {s: st.steps for s, st in sorted(self.slots.items())},
-                "slots": len(self.slots), "capture_s": self.capture_s}
+        return {**super().stats(), "slots": len(self.slots)}
 
     def seat(self, slot: int, cache: Dict[str, torch.Tensor]) -> None:
         """Copy ``cache`` (a request's, B = 1) into ``slot``'s static
@@ -438,18 +454,8 @@ class StagedSlots(_Staged):
         self._check_params(params)
         state = self.slots[slot]
         state.token.copy_(token)
-        state.steps += 1
-        args = (params, state.cache, state.token)
-        if self.device.type == "cuda":
-            if state.graph is None and state.steps > 1:
-                with self._span("capture", slot):
-                    state.graph = self._capture(args)
-                    return self._replay(state.graph, slot), state.cache
-            if state.graph is not None:
-                return self._replay(state.graph, slot), state.cache
-        self.eager_steps += 1
-        with self._span("eager", slot):
-            return self.step(*args)
+        return self._run(slot, slot,
+                         (params, state.cache, state.token))[0], state.cache
 
 
 class StagedPrefill(_Staged):
@@ -468,16 +474,6 @@ class StagedPrefill(_Staged):
         self.tokens = torch.zeros((1, max_seq_len), dtype=torch.int32,
                                   device=self.device)
         self.cache = init_cache()
-        self.graphs: Dict[int, _Graph] = {}
-        #: prefills run at each prompt length (eager, captured, replayed)
-        self.prefills: Dict[int, int] = {}
-        self.eager_prefills = 0
-
-    def stats(self) -> dict:
-        return {"captures": self.captures, "replays": self.replays,
-                "eager_prefills": self.eager_prefills,
-                "prefills": dict(sorted(self.prefills.items())),
-                "capture_s": self.capture_s}
 
     def __call__(self, params, tokens):
         self._check_params(params)
@@ -486,16 +482,5 @@ class StagedPrefill(_Staged):
             raise ValueError(f"tokens {tuple(tokens.shape)}, want (1, S) "
                              f"with 0 < S <= {self.tokens.shape[1]}")
         self.tokens[:, :S].copy_(tokens)
-        self.prefills[S] = self.prefills.get(S, 0) + 1
         args = (params, {"tokens": self.tokens[:, :S]}, self.cache)
-        if self.device.type == "cuda":
-            staged = self.graphs.get(S)
-            if staged is None and self.prefills[S] > 1:
-                with self._span("capture", S):
-                    staged = self.graphs[S] = self._capture(args)
-                    return self._replay(staged, S), self.cache
-            if staged is not None:
-                return self._replay(staged, S), self.cache
-        self.eager_prefills += 1
-        with self._span("eager", S):
-            return self.step(*args)
+        return self._run(S, S, args)[0], self.cache

@@ -15,13 +15,13 @@ direction (the copy streams, ``core.offload.copy_streams``, are the
 device's, shared by every streamed step on it); in the serial schedule
 the copies run in series with the compute on the capture stream.
 
-It counts calls as the engine's staged functions do
-(``repro_torch.serve.staged``, whose capture and replay it shares): the
-first step runs eagerly on the static buffers, the second captures the
-step, with nothing run, and replays the graph for its own result, and
-every later step replays.  A run's batch never changes shape, so there is
-one graph.  It reads params and state at the addresses it was captured
-with; a call with other tensors raises.  A capture that fails raises:
+It follows the rule of the engine's staged functions
+(``repro_torch.serve.staged._Staged._run``, with their capture and
+replay) under one key, as a run's batch never changes shape: the first
+step runs eagerly on the static buffers, the second captures the step,
+with nothing run, and replays the graph for its own result, and every
+later step replays.  It reads params and state at the addresses it was
+captured with; a call with other tensors raises.  A capture that fails raises:
 there is no eager fallback on the card, and no fallback from the
 streamed schedule to the serial one.
 
@@ -41,7 +41,7 @@ step is called directly; no graph exists.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -73,23 +73,30 @@ class StagedTrainStep(_Staged):
                       for k, v in template.items()}
         self.outputs = {k: torch.zeros((), dtype=torch.float32,
                                        device=self.device) for k in OUTPUTS}
-        self.graph: Optional[_Graph] = None
-        #: steps run (eager, captured or replayed)
-        self.steps = 0
-        self.eager_steps = 0
+        #: the clock an eager step times its stages with
+        self._clock = None
 
     @staticmethod
     def _output(result):
         return result
 
     def stats(self) -> dict:
-        return {"captures": self.captures, "replays": self.replays,
-                "eager_steps": self.eager_steps, "steps": self.steps,
-                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes()}
+        return {**super().stats(), "pool_bytes": self.pool_bytes()}
 
     def _capture(self, args) -> _Graph:
         torch.cuda.empty_cache()
         return super()._capture(args)
+
+    def _eager(self, args):
+        """On a card, on the side stream the capture will use."""
+        if self._stream is None:
+            return self.step(*args, self._clock)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            out = self.step(*args, self._clock)
+        current.wait_stream(self._stream)
+        return out
 
     def __call__(self, params, opt_state, batch,
                  clock=None) -> Tuple[Dict[str, torch.Tensor], str]:
@@ -102,29 +109,11 @@ class StagedTrainStep(_Staged):
                 raise ValueError(f"batch[{key!r}] {tuple(batch[key].shape)}"
                                  f", the static buffer {tuple(buf.shape)}")
             buf.copy_(batch[key])
-        self.steps += 1
-        args = (params, opt_state, self.batch, self.outputs)
-        if self.device.type != "cuda":
-            self.eager_steps += 1
-            with self._span("eager"):
-                return self.step(*args, clock), "eager"
-        if self.steps > 1:
-            mode = "replay" if self.graph is not None else "capture"
-            if clock is not None:
-                clock.start()
-            if self.graph is None:
-                with self._span("capture"):
-                    self.graph = self._capture(args)
-                    out = self._replay(self.graph)
-            else:
-                out = self._replay(self.graph)
-            if clock is not None:
-                clock.lap(mode)
-            return out, mode
-        self.eager_steps += 1
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with self._span("eager"), torch.cuda.stream(self._stream):
-            self.step(*args, clock)
-        current.wait_stream(self._stream)
-        return self.outputs, "eager"
+        self._clock = clock
+        if clock is not None:
+            clock.start()      # an eager step starts it again itself
+        out, mode = self._run(None, None, (params, opt_state, self.batch,
+                                           self.outputs))
+        if clock is not None and mode != "eager":
+            clock.lap(mode)
+        return out, mode

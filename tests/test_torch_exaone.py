@@ -22,6 +22,7 @@ from repro_torch.models import build_model
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import layer_attention
 from repro_torch.models.flags import Flags
+from torch_threads import one_thread  # noqa: F401  (a fixture)
 
 NAME = "k-exaone-236b-a23b"
 #: f32 on both sides: the program and the reference sum in other orders
@@ -172,17 +173,6 @@ def test_expert_shares_add_up_to_the_uncut_layer():
                                rtol=TOL, atol=TOL)
     # a share alone is not the layer: the other chip's experts matter
     assert not torch.allclose(parts[0], want, rtol=TOL, atol=TOL)
-
-
-@pytest.fixture
-def one_thread():
-    """torch on one CPU thread for a timed window: beside the other test
-    workers, its thread pool oversubscribes the cores, and the engine then
-    served 6 tokens in 5 s where one thread serves ~1,400."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_engine_serves_on_the_paged_path_and_traces_it(one_thread):
@@ -345,7 +335,7 @@ def test_card_counts_equal_the_launches():
     windowed = sum(layer_attention(model.cfg, l)[0] is not None
                    for l in range(L))
     moe_layers = L - cfg["model"]["dense_layers"]
-    prefills = sum(eng.staged_prefill.prefills.values())
+    prefills = sum(eng.staged_prefill.calls.values())
     assert eng.staged.replays > 0 and eng.staged_prefill.replays > 0
     assert after[WINDOWED_LAUNCHES] - before.get(WINDOWED_LAUNCHES, 0) \
         == windowed * eng.paged_rounds

@@ -122,10 +122,10 @@ def test_staged_engine_matches_eager_and_reference(modelling_reference,
     assert staged[3]["paged_attention_decode"] == \
         staged_eng.paged_rounds * layers
     st = staged_eng.staged.stats()
-    assert sum(st["rounds"].values()) == staged_eng.paged_rounds
-    assert len(st["rounds"]) > 1                     # several batch sizes
+    assert sum(st["calls"].values()) == staged_eng.paged_rounds
+    assert len(st["calls"]) > 1                     # several batch sizes
     assert st["captures"] == st["replays"] == 0      # no graph on the CPU
-    assert st["eager_rounds"] == staged_eng.paged_rounds
+    assert st["eager_calls"] == staged_eng.paged_rounds
     assert st["pool_pages"] >= ECFG["onboard_pages"]
 
 
@@ -433,7 +433,7 @@ def test_steps_run_at_the_exact_batch_size(modelling_reference, jax_params):
     assert got[:3] == _serve(_reference_engine(arch, jax_params),
                              JSubmitSpec)[:3]
     assert all(b == live for b, live in rows)
-    assert sorted(eng.staged.rounds) == sorted({b for b, _ in rows})
+    assert sorted(eng.staged.calls) == sorted({b for b, _ in rows})
 
     cfg = eng.cfg
     model = eng.model
@@ -484,10 +484,10 @@ def test_captured_graphs_match_eager_on_the_card(cuda_device, jax_params,
     assert staged_launch["paged_attention"] == \
         eng.paged_rounds * eng.cfg.num_layers
     st = eng.staged.stats()
-    recurring = sum(1 for n in st["rounds"].values() if n > 1)
-    assert st["eager_rounds"] == len(st["rounds"]) > 1   # each B's first
+    recurring = sum(1 for n in st["calls"].values() if n > 1)
+    assert st["eager_calls"] == len(st["calls"]) > 1   # each B's first
     assert st["captures"] >= recurring > 0
-    assert st["replays"] == eng.paged_rounds - st["eager_rounds"] > 0
+    assert st["replays"] == eng.paged_rounds - st["eager_calls"] > 0
 
 
 @pytest.mark.cuda
@@ -508,4 +508,4 @@ def test_a_host_sync_in_the_step_raises(cuda_device, jax_params):
     with pytest.raises(RuntimeError):
         eng.run(10)
     assert eng.staged.captures == 0
-    assert eng.paged_rounds == eng.staged.eager_rounds == 1
+    assert eng.paged_rounds == eng.staged.eager_calls == 1

@@ -167,8 +167,8 @@ def test_staged_prefill_matches_eager_and_reference(modelling_reference,
     kernel = "rwkv6_scan" if arch == "rwkv6-7b" else "flash_attention"
     assert staged[1][kernel] == len(LOAD) * staged_eng.cfg.num_layers
     st = staged_eng.staged_prefill.stats()
-    assert st["prefills"] == {7: 2, 13: 4, 20: 3}
-    assert st["eager_prefills"] == len(LOAD)
+    assert st["calls"] == {7: 2, 13: 4, 20: 3}
+    assert st["eager_calls"] == len(LOAD)
     assert st["captures"] == st["replays"] == 0      # no graph on the CPU
 
 
@@ -213,7 +213,7 @@ def test_static_cache_is_reset_before_every_prefill(jax_params, arch):
             exp, want = model.decode_step(params, want, tok)
             torch.testing.assert_close(got, exp, rtol=0, atol=0)
             tok = torch.argmax(got, dim=-1, keepdim=True).to(torch.int32)
-    assert staged.stats()["prefills"] == {9: 1, 20: 1, 30: 1}
+    assert staged.stats()["calls"] == {9: 1, 20: 1, 30: 1}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -243,7 +243,7 @@ def test_a_prompt_past_the_token_buffer_is_refused(jax_params):
                            max_seq_len=16, device="cpu")
     with pytest.raises(ValueError, match="0 < S <= 16"):
         staged(params, torch.ones((1, 17), dtype=torch.int32))
-    assert staged.stats()["prefills"] == {}
+    assert staged.stats()["calls"] == {}
 
 
 # ------------------------------------------------------------------ card
@@ -274,7 +274,7 @@ def test_captured_prefill_graphs_match_eager_on_the_card(cuda_device,
     for got, want in zip(staged[2], eager[2]):
         np.testing.assert_array_equal(got, want)
     st = eng.staged_prefill.stats()
-    assert st["eager_prefills"] == len(st["prefills"]) == 3
+    assert st["eager_calls"] == len(st["calls"]) == 3
     assert st["captures"] == 3
     assert st["replays"] == len(LOAD) - 6
 
@@ -298,4 +298,4 @@ def test_a_host_sync_in_prefill_raises(cuda_device, jax_params):
     with pytest.raises(RuntimeError):
         eng.run(10)
     assert eng.staged_prefill.captures == 0
-    assert eng.staged_prefill.eager_prefills == 1
+    assert eng.staged_prefill.eager_calls == 1

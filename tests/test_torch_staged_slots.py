@@ -147,7 +147,7 @@ def test_staged_slots_match_eager_and_reference(modelling_reference,
     assert staged[3][kernel] == len(LOAD) * staged_eng.cfg.num_layers
     st = staged_eng.staged.stats()
     steps = sum(new - 1 for _, new in LOAD)   # the first token: prefill
-    assert sum(st["steps"].values()) == st["eager_steps"] == steps
+    assert sum(st["calls"].values()) == st["eager_calls"] == steps
     assert st["captures"] == st["replays"] == 0      # no graph on the CPU
     assert st["slots"] == ECFG["decode_slots"]
 
@@ -279,7 +279,7 @@ def test_a_ninth_request_goes_through_a_used_slot(modelling_reference,
     assert staged == eager == ref
     assert len(seated) == 9 and eng.staged.stats()["slots"] == 8
     assert [used for _, used in seated] == [False] * 8 + [True]
-    assert eng.staged.slots[seated[8][0]].steps > load[8][1] - 1
+    assert eng.staged.calls[seated[8][0]] > load[8][1] - 1
 
 
 # ------------------------------------------------------------------ card
@@ -308,10 +308,10 @@ def test_captured_slot_graphs_match_eager_on_the_card(cuda_device,
     assert staged == eager
     assert staged_launch == eager_launch
     st = eng.staged.stats()
-    steps = st["steps"].values()
-    assert st["eager_steps"] == st["slots"] == ECFG["decode_slots"]
+    steps = st["calls"].values()
+    assert st["eager_calls"] == st["slots"] == ECFG["decode_slots"]
     assert st["captures"] == sum(n > 1 for n in steps) > 0
-    assert st["replays"] == sum(steps) - st["eager_steps"] > 0
+    assert st["replays"] == sum(steps) - st["eager_calls"] > 0
 
 
 @pytest.mark.cuda
@@ -332,4 +332,4 @@ def test_a_host_sync_in_the_slot_step_raises(cuda_device, jax_params):
     with pytest.raises(RuntimeError):
         eng.run(10)
     assert eng.staged.captures == 0
-    assert eng.staged.eager_steps == 1
+    assert eng.staged.eager_calls == 1

@@ -157,7 +157,7 @@ def test_params_and_state_keep_their_addresses():
         assert {k: v.data_ptr() for k, v in out.items()} == outs
         assert int(state["count"]) == i + 1
         assert np.isfinite(float(out["loss"]))
-    assert staged.stats()["eager_steps"] == len(batches)
+    assert staged.stats()["eager_calls"] == len(batches)
 
 
 @pytest.mark.parametrize("fresh", ["params", "opt_state"])

@@ -106,7 +106,7 @@ def staged_launcher_matches_eager_and_reference(arch, accum, compress):
     _assert_bitwise(staged["params"], eager["params"])
     _assert_bitwise(staged["opt_state"], eager["opt_state"])
     assert [r["mode"] for r in staged["step_log"]] == ["eager"] * STEPS
-    assert staged["staged"]["eager_steps"] == STEPS
+    assert staged["staged"]["eager_calls"] == STEPS
     assert staged["staged"]["captures"] == 0
     _assert_near_reference(staged["losses"], staged["params"], ref)
 
