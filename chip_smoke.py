@@ -75,11 +75,14 @@ Phases (any failure raises and the script exits non-zero):
      bursts and the rest, with the reads' and writes' GB/s.
      Every paged serve phase (3, 4b, 4f-4h) runs the engine as it comes:
      each batch size's first round eager, then the paged step captured
-     as one CUDA graph per batch size and replayed, its launch counts
-     exact through replays, and fails unless the eager rounds (one per
-     batch size) and replays together are its paged rounds.  Every serve
-     phase's fresh engine meets each prompt length once, so its prefills
-     run eagerly, on the engine's static prefill cache;
+     as one CUDA graph per batch size when the capture rule says
+     (``serve/staged.CaptureRule``; the first batch size met twice at its
+     second round) and replayed, its launch counts exact through
+     replays, and fails unless the eager rounds (each batch size's first
+     and those the rule left eager) and replays together are its paged
+     rounds.  Every serve phase's fresh engine meets each prompt length
+     once, so its prefills run eagerly, on the engine's static prefill
+     cache;
   3s. qwen2-1.5b (full) and dbrx-132b (full width, 8 of 40 layers)
      served eager (``staged=False``) and staged, the same params and
      prompts, each engine twice (the second run times the model step per
@@ -89,18 +92,19 @@ Phases (any failure raises and the script exits non-zero):
      fresh engines' first runs each, staged over eager); one replay
      traced with ``torch.profiler`` must hold one paged split and one
      combine kernel a layer, and gives dbrx-132b's MoE share of it; the
-     second run meets each prompt length again, so it also captures one
-     prefill graph a length, reported apart;
+     second run meets each prompt length again, so it captures the
+     first length's prefill graph and those the rule buys, reported
+     apart;
   3d. the dense slot path (each request alone at B = 1 against its own
      cache) likewise: rwkv6-7b and h2o-danube-3-4b at full width and
      depth, phase 3's prompt lengths, served eager and staged (one CUDA
      graph per decode slot), each engine twice: equal streams, link
      bytes, hits and misses, launch and dispatch counts (``rwkv6_scan`` or
      flash layers x prompts, paged none); each slot's first step eager,
-     its second captured and every later one replayed, and the second
-     run captures nothing; prints the model step per decode step eager
-     beside replayed, first-run tokens/s of two fresh pairs of engines
-     and one slot replay's traced device time and operation count (the
+     a slot captured by the rule (the first slot stepped twice at its
+     second step) and replayed after; prints the model step per decode
+     step eager beside replayed, first-run tokens/s of two fresh pairs of
+     engines and one slot replay's traced device time and operation count (the
      second run's prefill captures reported apart, as in 3s);
   3p. prefill staged (one CUDA graph per prompt length, all writing into
      the engine's one static prefill cache): qwen2-1.5b (paged, flash in
@@ -110,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
      one engine, staged and eager: each pass's streams, and the link
      bytes, hits, misses, launch and dispatch counts of the three, equal;
      flash 28 and 32 and the scan 32 launches a prompt; pass 1 all eager,
-     pass 2 one capture a length, pass 3 replays only; prints eager and
+     pass 2 the first length captured, every other length as the rule
+     says; prints eager and
      replayed prefill (median ms a prompt, synchronised), captures,
      replays and their host time, the prefill graphs' pool bytes, pass
      3's mean TTFT and tokens/s and each engine's peak memory;
@@ -1413,7 +1418,7 @@ def check_paged(res, cfg) -> None:
         raise AssertionError(f"{cfg.name}: no paged decode round ran")
     st = res["staged"]
     if not st or st["captures"] < 1 or st["replays"] < 1 or \
-            st["eager_calls"] != len(st["calls"]) or \
+            st["eager_calls"] != len(st["calls"]) + st["eager_repeats"] or \
             st["eager_calls"] + st["replays"] != res["paged_rounds"]:
         raise AssertionError(f"{cfg.name}: the paged step did not run "
                              f"through captured graphs: {st}")
@@ -1426,14 +1431,15 @@ def check_paged(res, cfg) -> None:
 
 
 def check_slots(res, cfg) -> None:
-    """The dense slot path staged: each slot's first step ran eagerly, its
-    second was captured, and every later one replayed."""
+    """The dense slot path staged: each slot's first step ran eagerly, a
+    slot stepped again ran eagerly or was captured as the capture rule
+    says (at least one was), and every other step replayed."""
     st = res["staged"]
     steps = list(st["calls"].values()) if st else []
     if not st or res["decode_path"] != "dense" or st["replays"] < 1 or \
-            st["eager_calls"] != len(steps) or \
-            st["captures"] != sum(n > 1 for n in steps) or \
-            st["replays"] != sum(steps) - len(steps):
+            st["eager_calls"] != len(steps) + st["eager_repeats"] or \
+            not 1 <= st["captures"] <= sum(n > 1 for n in steps) or \
+            st["replays"] != sum(steps) - st["eager_calls"]:
         raise AssertionError(f"{cfg.name}: the dense slot step did not run "
                              f"through captured graphs: {st}")
 
@@ -1541,10 +1547,10 @@ def breakdown_phase(torch, cfg, flags, params, prompts, ecfg, apart=()):
     out["rounds"] = len(rounds)
     if eng.staged is not None:
         # host time of the captures: part of model_step, once per batch
-        # size that recurs in the run
+        # size the capture rule buys in the run
         out["capture_s_in_model_step"] = eng.staged.capture_s
     if eng.staged_prefill is not None:
-        # and part of prefill, once per prompt length that recurs
+        # and part of prefill, once per prompt length the rule buys
         out["capture_s_in_prefill"] = eng.staged_prefill.capture_s
     if inner:
         out["apart"] = inner
@@ -1640,12 +1646,12 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
     ``prompts`` served twice.  The first run is measured as a user meets
     it (counts reset just before it and read just after; a staged engine
     runs each batch size's, or on the dense slot path each slot's, first
-    step eagerly and captures its graph at the second); the second serves
-    the same prompts again with the model step timed per call (a paged
-    round, or one request's dense step), the device synchronised around
-    it (a staged engine replays, and captures what the first run met
-    once).  A staged engine's replay is then traced
-    (:func:`replay_trace`)."""
+    step eagerly and captures its graph when the capture rule says); the
+    second serves the same prompts again with the model step timed per
+    call (a paged round, or one request's dense step), the device
+    synchronised around it (a staged engine replays, and captures what
+    the rule buys now; its eager steps are timed apart).  A staged
+    engine's replay is then traced (:func:`replay_trace`)."""
     from repro_torch.core.metrics import GLOBAL_METRICS
     from repro_torch.kernels import cuda_build, ops
 
@@ -1681,22 +1687,28 @@ def staged_run(torch, cfg, flags, params, prompts, ecfg, staged) -> dict:
         staged=eng.staged.stats() if eng.staged else None,
         staged_prefill=prefill_stats(eng))
     attr = "_paged_fn" if eng._use_paged else "_decode_fn"
-    step_s, capture_s, fn = [], [], getattr(eng, attr)
+    step_s, capture_s, eager_s, fn = [], [], [], getattr(eng, attr)
 
     def timed(*args):
-        captures = eng.staged.captures if eng.staged else 0
+        st = eng.staged
+        before = (st.captures, st.eager_calls) if st else None
         torch.cuda.synchronize()
         t = time.monotonic()
         out = fn(*args)
         torch.cuda.synchronize()
-        captured = eng.staged is not None and eng.staged.captures > captures
-        (capture_s if captured else step_s).append(time.monotonic() - t)
+        if st is None:
+            step_s.append(time.monotonic() - t)
+        else:
+            (capture_s if st.captures > before[0] else
+             eager_s if st.eager_calls > before[1] else
+             step_s).append(time.monotonic() - t)
         return out
 
     setattr(eng, attr, timed)
     second = run()
     second["step_ms"] = sorted(x * 1e3 for x in step_s)
     second["capture_ms"] = [x * 1e3 for x in capture_s]
+    second["eager_ms"] = [x * 1e3 for x in eager_s]
     second["staged"] = eng.staged.stats() if eng.staged else None
     second["staged_prefill"] = prefill_stats(eng)
     out = {"first": first, "second": second}
@@ -1714,8 +1726,9 @@ def prefill_stats(eng):
 
 def prefill_text(staged) -> str:
     """What the staged prefill did in phase 3s's or 3d's two runs: the
-    second run meets each prompt length again, so it captures one graph
-    a length (time that the second run's tokens/s includes)."""
+    second run meets each prompt length again, so it captures the first
+    length and those the rule buys (time that the second run's tokens/s
+    includes)."""
     p1, p2 = staged["first"]["staged_prefill"], \
         staged["second"]["staged_prefill"]
     return (f"prefill: first run {p1['eager_calls']} eager, "
@@ -1795,9 +1808,10 @@ def replay_trace(torch, eng, cfg, flags, params) -> dict:
         key = max(eng.staged.graphs, key=lambda k: k[2])
         B, graph = key[2], eng.staged.graphs[key].graph
     else:
-        # graphs by slot: the most stepped slot's
+        # graphs by slot: the most stepped captured slot's
         calls = eng.staged.calls
-        B, graph = 1, eng.staged.graphs[max(calls, key=calls.get)].graph
+        B, graph = 1, eng.staged.graphs[max(eng.staged.graphs,
+                                            key=calls.get)].graph
     ops_ = device_ops(graph.replay)    # not counted: no wrapper runs
     names = [n for n, _ in ops_]
     busy = sum(us for _, us in ops_)
@@ -1891,12 +1905,14 @@ def eager_and_staged(torch, cfg, flags, prompts, ecfg, pairs) -> tuple:
                                  f"eager {e1[key]}")
     if eager["second"]["streams"] != staged["second"]["streams"]:
         raise AssertionError(f"{cfg.name}: second runs' streams differ")
-    # prefill: each prompt length's first prefill eager, its second (in
-    # the second run) captured
+    # prefill: each prompt length's first prefill eager; in the second
+    # run the first length captured, each other as the rule says
     lengths = len({len(p) for p, _ in prompts})
     p1, p2 = s1["staged_prefill"], staged["second"]["staged_prefill"]
-    if p1["eager_calls"] != lengths or p2["captures"] != lengths or \
-            p2["eager_calls"] != lengths:
+    if p1["eager_calls"] != lengths or p1["captures"] or \
+            not 1 <= p2["captures"] <= lengths or \
+            p2["eager_calls"] != lengths + p2["eager_repeats"] or \
+            p2["eager_calls"] + p2["replays"] != 2 * len(prompts):
         raise AssertionError(f"{cfg.name}: staged prefill {p1} then {p2}")
     return eager, staged, fresh
 
@@ -1935,13 +1951,12 @@ def staged_phase(torch, lens, news, card) -> dict:
                                  f"{s1['launches']} times, not {L} x "
                                  f"{s1['paged_rounds']}")
         st1, st2 = s1["staged"], staged["second"]["staged"]
-        recurring = sum(1 for n in st1["calls"].values() if n > 1)
-        if st1["eager_calls"] != len(st1["calls"]) or \
+        if st1["eager_calls"] != len(st1["calls"]) + \
+                st1["eager_repeats"] or \
                 st1["eager_calls"] + st1["replays"] != \
-                s1["paged_rounds"] or st1["captures"] < recurring or \
-                st2["eager_calls"] != st1["eager_calls"] or \
-                st2["replays"] - st1["replays"] != \
-                staged["second"]["paged_rounds"]:
+                s1["paged_rounds"] or st1["captures"] < 1 or \
+                st2["eager_calls"] + st2["replays"] - st1["eager_calls"] - \
+                st1["replays"] != staged["second"]["paged_rounds"]:
             raise AssertionError(f"{cfg.name}: captures and replays {st1} "
                                  f"then {st2}")
         tr = staged["trace"]
@@ -1952,7 +1967,8 @@ def staged_phase(torch, lens, news, card) -> dict:
               f"streams, link bytes {s1['link_bytes']}, hits {s1['hits']}, "
               f"misses {s1['misses']}, launches {s1['launches']}; batch "
               f"sizes {st1['calls']}: first run {st1['eager_calls']} "
-              f"eager rounds (each batch size's first), {st1['captures']} "
+              f"eager rounds ({st1['eager_repeats']} of a batch size met "
+              f"before), {st1['captures']} "
               f"captures ({st1['capture_s']:.3f} s of host time), "
               f"{st1['replays']} replays; second run "
               f"{st2['captures'] - st1['captures']} captures, "
@@ -1970,7 +1986,9 @@ def staged_phase(torch, lens, news, card) -> dict:
         print(f"  model step per round (second run, synchronised): eager "
               f"{ms(eager['second']['step_ms'])}; staged replays "
               f"{ms(staged['second']['step_ms'])}, capture rounds "
-              f"{[round(x, 3) for x in staged['second']['capture_ms']]} ms")
+              f"{[round(x, 3) for x in staged['second']['capture_ms']]} ms"
+              f", eager rounds "
+              f"{[round(x, 3) for x in staged['second']['eager_ms']]} ms")
         print(f"  replay at B={tr['B']} traced: {tr['ops']} device "
               f"operations, {tr['paged_split']} paged_split_kernel and "
               f"{tr['paged_combine']} paged_combine_kernel, device time "
@@ -2026,14 +2044,12 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
                                  f"{kernel} {L} x {len(prompts)}, no paged")
         st1, st2 = s1["staged"], staged["second"]["staged"]
         steps = list(st1["calls"].values())
-        if st1["eager_calls"] != len(steps) or \
-                st1["captures"] != sum(n > 1 for n in steps) or \
+        if st1["eager_calls"] != len(steps) + st1["eager_repeats"] or \
+                not 1 <= st1["captures"] <= sum(n > 1 for n in steps) or \
                 sum(steps) != s1["decode_steps"] or \
-                st1["replays"] != sum(steps) - len(steps) or \
-                st2["captures"] != st1["captures"] or \
-                st2["eager_calls"] != st1["eager_calls"] or \
-                st2["replays"] - st1["replays"] != \
-                staged["second"]["decode_steps"]:
+                st1["replays"] != sum(steps) - st1["eager_calls"] or \
+                st2["eager_calls"] + st2["replays"] - st1["eager_calls"] - \
+                st1["replays"] != staged["second"]["decode_steps"]:
             raise AssertionError(f"{cfg.name}: eager steps, captures and "
                                  f"replays {st1} then {st2}")
         tr = staged["trace"]
@@ -2044,7 +2060,8 @@ def staged_dense_phase(torch, lens, news, card, archs=DENSE_STAGED_RUN
               f"and staged: equal streams, link bytes {s1['link_bytes']}, "
               f"hits {s1['hits']}, misses {s1['misses']}, launches {got}; "
               f"{st1['slots']} slots, steps a slot {steps}: first run "
-              f"{st1['eager_calls']} eager steps, {st1['captures']} "
+              f"{st1['eager_calls']} eager steps ({st1['eager_repeats']} "
+              f"of a slot stepped before), {st1['captures']} "
               f"captures ({st1['capture_s']:.3f} s of host time), "
               f"{st1['replays']} replays; second run "
               f"{st2['captures'] - st1['captures']} captures, "
@@ -2136,8 +2153,9 @@ def staged_prefill_phase(torch, lens, card) -> dict:
     and the link bytes, onboard hits and misses, launch and dispatch
     counts of the three passes, are equal staged and eager, the prefill
     kernel launched layers x prompts x passes in both, and the staged
-    engine prefilled pass 1 eagerly, captured one graph a length in pass
-    2 and only replayed in pass 3.  Prints the median prefill a prompt,
+    engine prefilled pass 1 eagerly and captured the first length at its
+    second prefill (pass 2), every other length as the capture rule
+    says.  Prints the median prefill a prompt,
     synchronised (the eager engine's, and the staged engine's pass by
     pass), the captures, replays and their host time, the prefill graphs'
     pool bytes, pass 3's mean TTFT and tokens/s staged beside eager, and
@@ -2184,11 +2202,10 @@ def staged_prefill_phase(torch, lens, card) -> dict:
                                  f"not {L} x {n} x {PREFILL_PASSES}")
         sp = [p["staged_prefill"] for p in staged["passes"]]
         if (sp[0]["eager_calls"], sp[0]["captures"], sp[0]["replays"]) \
-                != (n, 0, 0) or \
-                (sp[1]["eager_calls"], sp[1]["captures"],
-                 sp[1]["replays"]) != (n, n, n) or \
-                (sp[2]["eager_calls"], sp[2]["captures"],
-                 sp[2]["replays"]) != (n, n, 2 * n):
+                != (n, 0, 0) or sp[1]["captures"] < 1 or \
+                any(p["eager_calls"] != n + p["eager_repeats"] or
+                    p["eager_calls"] + p["replays"] != n * (k + 1)
+                    for k, p in enumerate(sp)):
             raise AssertionError(f"{arch}: eager prefills, captures and "
                                  f"replays by pass: {sp}")
         med = [_pct(p["prefill_ms"], 50) for p in staged["passes"]]
@@ -2198,13 +2215,16 @@ def staged_prefill_phase(torch, lens, card) -> dict:
               f"bytes {staged['link_bytes']}, hits {staged['hits']}, misses "
               f"{staged['misses']}, launches {staged['launches']}; pass 1 "
               f"{sp[0]['eager_calls']} eager, pass 2 "
-              f"{sp[1]['captures']} captures ({sp[2]['capture_s']:.3f} s "
-              f"of host time), pass 3 {sp[2]['replays'] - sp[1]['replays']}"
-              f" replays; prefill graphs' pool {staged['pool_bytes']:,} B")
+              f"{sp[1]['captures']} captures, pass 3 "
+              f"{sp[2]['captures'] - sp[1]['captures']} captures "
+              f"({sp[2]['capture_s']:.3f} s of host time in all), "
+              f"{sp[2]['replays'] - sp[1]['replays']} replays and "
+              f"{sp[2]['eager_calls'] - sp[1]['eager_calls']} eager; "
+              f"prefill graphs' pool {staged['pool_bytes']:,} B")
         print(f"  prefill a prompt (median, synchronised): eager engine "
               f"{_pct(e3['prefill_ms'], 50):.3f} ms (pass 3); staged pass 1 "
-              f"eager {med[0]:.3f}, pass 2 captures {med[1]:.3f}, pass 3 "
-              f"replays {med[2]:.3f} ms; replay/eager "
+              f"eager {med[0]:.3f}, pass 2 {med[1]:.3f}, pass 3 "
+              f"{med[2]:.3f} ms; pass 3 staged/eager "
               f"{med[2] / _pct(e3['prefill_ms'], 50):.3f}")
         print(f"  pass 3: mean TTFT eager {e3['mean_ttft_s'] * 1e3:.2f} ms, "
               f"staged {s3['mean_ttft_s'] * 1e3:.2f} ms; tokens/s eager "

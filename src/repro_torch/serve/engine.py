@@ -19,11 +19,12 @@ latencies feed the tenant's SLO tracker, closing the loop.
 
 PyTorch port of ``repro.serve.engine``: where the reference stages its
 prefill and decode steps with ``jax.jit``, the port captures them as CUDA
-graphs (``serve/staged.py``): prefill one graph per prompt length, all
-writing into one static prefill cache; the paged step one graph per
-batch size; the dense slot step one graph per decode slot, each slot
-holding a static cache that a request's prefilled cache is copied into
-when it is seated.  ``staged=False`` runs prefill and both steps eagerly.
+graphs (``serve/staged.py``), each shape captured once its replays
+repay the capture: prefill one graph per prompt length, all writing
+into one static prefill cache; the paged step one graph per batch size;
+the dense slot step one graph per decode slot, each slot holding a
+static cache that a request's prefilled cache is copied into when it is
+seated.  ``staged=False`` runs prefill and both steps eagerly.
 Greedy argmax runs on the device with one host sync per prefill, one per
 paged round, and one per request and step on the dense slot path, as the
 reference's; the engine runs on the model's device (CUDA unless built

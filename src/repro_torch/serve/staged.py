@@ -12,7 +12,8 @@ the eager call issues them: it is neither ``torch.compile`` nor a library
 kernel.
 
 :class:`StagedStep` stages the paged step (``Model.decode_step_paged``),
-one graph per exact batch size B that recurs and per pool the step reads.
+one graph per exact batch size B the rule captures and per pool the step
+reads.
 A graph reads fixed addresses, so it keeps its inputs in static buffers
 on the device, written before the replay on the stream that replays:
 
@@ -32,7 +33,8 @@ on the device, written before the replay on the stream that replays:
 A graph is kept per (pool address, pool rows, B): it is valid for any
 pool at that address and shape.  The buffer's regrowth, or a pool from
 outside that comes at a new address, drops the graphs that read the old
-one, and each recurring B is captured again against the new one.
+one, and each B is captured again against the new one as the rule says
+(a B the rule bought, at its next call).
 
 The batch is never padded: ``moe_apply`` sizes expert capacity from the
 token count and ranks claims by position, so padded rows would take
@@ -53,7 +55,9 @@ token's K/V at the right slot of the ring and the next replay moves on.
 :class:`StagedPrefill` stages ``Model.prefill``, which the reference
 runs at the prompt's exact length (it pads the tokens to a bucket, then
 passes ``toks[:, :len(prompt)]``), so ``jax.jit`` keeps one executable per
-length and this keeps one graph per length S.  Its static input is a
+length and this keeps at most one graph per length S (at long,
+device-bound lengths an eager call loses little against a replay, so a
+length is captured only after many calls).  Its static input is a
 token buffer ``[1, max_seq_len]`` int32, of which a prefill at S reads
 ``[:, :S]``; its static output is **one** prefill cache
 (``model.init_cache(1, max_seq_len)``) for every length, which the
@@ -66,9 +70,17 @@ All staged functions follow one rule (:meth:`_Staged._run`), keyed by
 the batch size, the slot, the prompt length (or, for the train step,
 nothing).  A key's first call runs eagerly on the static buffers, so a
 shape seen once costs what the eager call costs (and that call is the
-warm-up capture needs).  The second captures the call, with nothing run,
-and replays the graph for that call's result: its in-place writes happen
-once.  Every later call replays.  All graphs of a staged function share
+warm-up capture needs).  A key called again is captured when
+:class:`CaptureRule` says a graph has paid for itself (ski rental: run
+eagerly until the time the key's eager calls lost against a replay
+reaches what a capture costs), except the function's first capture,
+which comes at the second call of the first key called twice, so that
+what a capture costs gets measured.  A capture runs nothing: the graph
+is replayed for that call's result, so its in-place writes happen once.
+Every later call of the key replays.  Each eager call and each replay
+is timed on the device by a pair of CUDA events, read at a later call
+once the device has passed them (the engine syncs on every call's
+result), so timing adds no sync.  All graphs of a staged function share
 one memory pool (``torch.cuda.graph_pool_handle``): they never run at
 once, and each call's logits are read before the next replay.  A capture
 that fails raises: there is no eager fallback on the card.  The graphs read the
@@ -87,18 +99,21 @@ With tracing on (``trace``, the engine's tracer), each call runs under one
 span of its mode, ``staged.eager``, ``staged.capture`` or
 ``staged.replay``, carrying ``fn`` (``prefill``, ``step``, ``slot`` or
 ``train``) and ``key`` (the prompt length S, the batch size B or the
-slot); the replay that gives a capture's result is a ``staged.replay``
-span inside its ``staged.capture``, so each mode's spans count what its
-counter counts (``eager_calls``, ``captures``, ``replays``).  A pool-buffer
+slot), and ``staged.eager`` ``repeat``, whether the key was called before
+(a capture the rule declined); the replay that gives a capture's result
+is a ``staged.replay`` span inside its ``staged.capture``, so each mode's
+spans count what its counter counts (``eager_calls``, ``captures``,
+``replays``; ``eager_repeats`` the eager spans with ``repeat``).  A pool-buffer
 regrowth, or a pool from outside at a new address, is a
 ``staged.regrow`` event with the old and new row counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -150,13 +165,108 @@ def side_stream(device) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[device]
 
 
+class CaptureRule:
+    """When a staged function captures a key: ski rental.  Each call of a
+    key without a graph either rents (runs eagerly) or buys (captures);
+    a key is bought once the time its eager calls lost against a replay
+    reaches what a capture costs.  Every quantity is the function's own
+    measurement, fed in by :meth:`timed` and :meth:`bought`:
+
+    * a capture's cost: the host seconds of the function's captures, each
+      with the replay that gives its result (the first launch of a graph
+      uploads it), over their number;
+    * what an eager call of a key lost: its time less a replay's, where a
+      replay of the key has been timed; else its time times the share a
+      replay saves on the keys timed both ways (their mean replays summed
+      over their mean eager calls summed), and nothing while no key has
+      been timed both ways.
+
+    The function's first capture needs neither: it comes at the second
+    call of the first key called twice, and measures the cost.  A key
+    whose graph was dropped (its pool moved) has lost what it lost
+    before, so a key bought by the rule is bought again at its next call.
+    """
+
+    def __init__(self):
+        #: host seconds of the captures bought, and their number
+        self.cost_s = 0.0
+        self.captures = 0
+        #: [seconds, calls] timed by key, of eager calls and of replays
+        self._eager: Dict[object, List[float]] = {}
+        self._replay: Dict[object, List[float]] = {}
+
+    def timed(self, key, mode: str, seconds: float) -> None:
+        """An eager call (``mode`` ``"eager"``) or a replay of ``key``
+        took ``seconds`` on the device."""
+        timed = self._eager if mode == "eager" else self._replay
+        t = timed.setdefault(key, [0.0, 0])
+        t[0] += seconds
+        t[1] += 1
+
+    def bought(self, seconds: float) -> None:
+        """A capture and the replay that gave its result took ``seconds``
+        of host time."""
+        self.cost_s += seconds
+        self.captures += 1
+
+    def lost(self, key) -> Optional[float]:
+        """Seconds ``key``'s timed eager calls lost against replays of it,
+        or None while no eager call of it or no replay says what."""
+        eager = self._eager.get(key)
+        if eager is None:
+            return None
+        own = self._replay.get(key)
+        if own is not None:
+            return max(0.0, eager[0] - eager[1] * own[0] / own[1])
+        both = [k for k in self._replay if k in self._eager]
+        if not both:
+            return None
+        share = (sum(self._replay[k][0] / self._replay[k][1] for k in both)
+                 / sum(self._eager[k][0] / self._eager[k][1] for k in both))
+        return eager[0] * max(0.0, 1.0 - share)
+
+    def capture(self, key, calls: int) -> bool:
+        """Whether the ``calls``-th call of ``key``, which has no graph,
+        captures."""
+        if calls < 2:
+            return False
+        if not self.captures:
+            return True
+        lost = self.lost(key)
+        return lost is not None and lost >= self.cost_s / self.captures
+
+
+class _EventTimer:
+    """Times a call on the device by a pair of CUDA events on the current
+    stream; a pair is read only once the device has passed its end, so
+    reading never waits."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def start(self) -> "torch.cuda.Event":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def stop(self, start: "torch.cuda.Event") -> tuple:
+        return start, self.start()
+
+    @staticmethod
+    def seconds(pair: tuple) -> Optional[float]:
+        """The pair's seconds, or None while the device has not passed
+        its end."""
+        start, end = pair
+        return start.elapsed_time(end) / 1e3 if end.query() else None
+
+
 class _Staged:
     """What every staged function shares (the engine's three here, the
     train step in ``repro_torch.train.staged``): the side stream their
     captures use (one per device, :func:`side_stream`), a memory pool per
     function, the params address check, capture and replay with the
     counts a graph carries, and the rule that picks a call's mode
-    (:meth:`_run`)."""
+    (:meth:`_run`, :class:`CaptureRule`)."""
 
     #: what the spans call the staged function (``fn``)
     FN = ""
@@ -172,20 +282,32 @@ class _Staged:
         #: replayed)
         self.calls: Dict[object, int] = {}
         self.eager_calls = 0
+        #: eager calls of a key called before: captures the rule declined
+        self.eager_repeats = 0
         self.replays = 0
         #: graphs captured
         self.captures = 0
         #: host seconds spent capturing (graph instantiation included)
         self.capture_s = 0.0
+        #: when a key captures, from this function's own timings
+        self.rule = CaptureRule()
+        #: what times eager calls and replays on the device (none on the
+        #: CPU), and the host clock a capture is timed by
+        self.timer: Optional[_EventTimer] = None
+        self.host_clock: Callable[[], float] = time.monotonic
+        #: (key, mode, timer handle) of calls not yet read
+        self._timing: List[tuple] = []
         self._addresses: Optional[Tuple[int, ...]] = None
         self._mempool = self._stream = None
         if self.device.type == "cuda":
             self._mempool = torch.cuda.graph_pool_handle()
             self._stream = side_stream(self.device)
+            self.timer = _EventTimer(self.device)
 
     def stats(self) -> dict:
         return {"captures": self.captures, "replays": self.replays,
                 "eager_calls": self.eager_calls,
+                "eager_repeats": self.eager_repeats,
                 "calls": dict(sorted(self.calls.items())),
                 "capture_s": self.capture_s}
 
@@ -194,21 +316,51 @@ class _Staged:
         graph kept under ``graph_key``: ``(output, mode)``, the output as
         a graph keeps it (:meth:`_output`) and the mode ``"eager"``,
         ``"capture"`` or ``"replay"``.  The key's graph replays if there
-        is one; else a call after the key's first captures (the replay
-        inside gives the output) and the first runs eagerly.  On the CPU
-        every call runs eagerly."""
+        is one; else the call captures if :attr:`rule` says so (the
+        replay inside gives the output), and runs eagerly if not.  On the
+        CPU every call runs eagerly."""
+        self._read_timing()
         n = self.calls[key] = self.calls.get(key, 0) + 1
         if self.device.type == "cuda":
             staged = self.graphs.get(graph_key)
             if staged is not None:
-                return self._replay(staged, key), "replay"
-            if n > 1:
+                with self._timed(key, "replay"):
+                    return self._replay(staged, key), "replay"
+            if self.rule.capture(key, n):
+                t0 = self.host_clock()
                 with self._span("capture", key):
                     staged = self.graphs[graph_key] = self._capture(args)
-                    return self._replay(staged, key), "capture"
+                    out = self._replay(staged, key)
+                self.rule.bought(self.host_clock() - t0)
+                return out, "capture"
         self.eager_calls += 1
-        with self._span("eager", key):
+        self.eager_repeats += n > 1
+        with self._span("eager", key, repeat=n > 1), \
+                self._timed(key, "eager"):
             return self._output(self._eager(args)), "eager"
+
+    @contextlib.contextmanager
+    def _timed(self, key, mode: str):
+        """Time the call inside on the device, for :attr:`rule` to read
+        at a later call (nothing on the CPU)."""
+        if self.timer is None:
+            yield
+            return
+        start = self.timer.start()
+        yield
+        self._timing.append((key, mode, self.timer.stop(start)))
+
+    def _read_timing(self) -> None:
+        """Hand :attr:`rule` the timings of the calls the device has
+        finished; keep the rest for a later call."""
+        left = []
+        for key, mode, handle in self._timing:
+            seconds = self.timer.seconds(handle)
+            if seconds is None:
+                left.append((key, mode, handle))
+            else:
+                self.rule.timed(key, mode, seconds)
+        self._timing = left
 
     def _eager(self, args):
         """A call run eagerly."""
@@ -238,13 +390,14 @@ class _Staged:
         a serve step's logits (its cache or pool is a static buffer)."""
         return result[0]
 
-    def _span(self, mode: str, key=None):
+    def _span(self, mode: str, key=None, **args):
         """The span a call in ``mode`` runs under, or the no-op with
         tracing off."""
         tr = self.trace
         if not tr.enabled:
             return NULL_SPAN
-        return tr.span("staged." + mode, op="serve", fn=self.FN, key=key)
+        return tr.span("staged." + mode, op="serve", fn=self.FN, key=key,
+                       **args)
 
     def _replay(self, staged: _Graph, key=None):
         with self._span("replay", key):
@@ -292,7 +445,7 @@ class _Staged:
 
 class StagedStep(_Staged):
     """``step`` (``Model.decode_step_paged``) behind static input buffers,
-    captured once per recurring batch size B and pool on a CUDA device.
+    captured per batch size B and pool by the rule on a CUDA device.
     Called as the step is, ``(params, pool, page_table, lengths, token)
     -> (logits, pool)``, where ``pool`` is the onboard tier's pool (a
     round that fits one wave) or :meth:`rows` of the round's page count
@@ -415,10 +568,11 @@ class _Slot:
 
 class StagedSlots(_Staged):
     """``step`` (``Model.decode_step``) on one static cache per decode
-    slot, captured once per slot on a CUDA device.  A request is seated
-    in a slot with :meth:`seat` and stepped with ``(params, slot, token)
-    -> (logits, the slot's cache)``; :meth:`take` copies a preempted
-    request's cache out.  ``init_cache()`` makes one slot's cache."""
+    slot, captured per slot by the rule on a CUDA device.  A request is
+    seated in a slot with :meth:`seat` and stepped with ``(params, slot,
+    token) -> (logits, the slot's cache)``; :meth:`take` copies a
+    preempted request's cache out.  ``init_cache()`` makes one slot's
+    cache."""
 
     FN = "slot"
 
@@ -460,8 +614,8 @@ class StagedSlots(_Staged):
 
 class StagedPrefill(_Staged):
     """``step`` (``Model.prefill``) behind a static token buffer and one
-    static prefill cache, captured once per recurring prompt length S on
-    a CUDA device.  Called as ``(params, tokens [1, S] int32) -> (logits
+    static prefill cache, captured per prompt length S by the rule on a
+    CUDA device.  Called as ``(params, tokens [1, S] int32) -> (logits
     [1, V], cache)``, where ``cache`` is the static cache, filled for this
     prompt and valid until the next call.  ``init_cache()`` makes the
     cache (B = 1, ``max_seq_len`` slots)."""

@@ -18,9 +18,10 @@ the copies run in series with the compute on the capture stream.
 It follows the rule of the engine's staged functions
 (``repro_torch.serve.staged._Staged._run``, with their capture and
 replay) under one key, as a run's batch never changes shape: the first
-step runs eagerly on the static buffers, the second captures the step,
-with nothing run, and replays the graph for its own result, and every
-later step replays.  It reads params and state at the addresses it was
+step runs eagerly on the static buffers, the second captures the step
+(the function's first capture comes at the second call of a key), with
+nothing run, and replays the graph for its own result, and every later
+step replays.  It reads params and state at the addresses it was
 captured with; a call with other tensors raises.  A capture that fails raises:
 there is no eager fallback on the card, and no fallback from the
 streamed schedule to the serial one.

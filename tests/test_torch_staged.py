@@ -12,9 +12,8 @@ misses, and the same dispatcher calls.  Batch sizes vary from round to
 round (requests of different lengths finish at different rounds), so the
 step runs at several B.  Modelling mode, as in ``test_torch_serve.py``.
 
-The ``cuda`` tests run the captured graphs on the card: staged against
-eager with exact launch counts through replays, and a host sync inside
-the step, which must make the engine raise rather than run eagerly.
+The captured graphs' card tests, which need no JAX, are in
+``tests/test_torch_staged_card.py``.
 """
 
 import jax
@@ -34,7 +33,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import system_for
 from repro_torch.core.metrics import GLOBAL_METRICS
 from repro_torch.interop import params_from_numpy
-from repro_torch.kernels import cuda_build, ops
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
 from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
@@ -453,59 +452,3 @@ def test_steps_run_at_the_exact_batch_size(modelling_reference, jax_params):
         torch.cat([lengths, torch.tensor([0], dtype=torch.int32)]),
         torch.cat([token, token[:1]]))
     assert not torch.allclose(exact, padded[:3])
-
-
-# ------------------------------------------------------------------ card
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA graphs and the CUDA "
-                    "kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
-def test_captured_graphs_match_eager_on_the_card(cuda_device, jax_params,
-                                                 arch):
-    """Staged against eager on the card: the same streams, link bytes,
-    hits and misses, and the paged kernel launched layers x rounds in
-    both, counted through replays."""
-    runs = []
-    for staged in (False, True):
-        eng = _port_engine(arch, jax_params, device=cuda_device,
-                           staged=staged)
-        cuda_build.reset_launch_counts()
-        got = _serve(eng, SubmitSpec)
-        runs.append((got, cuda_build.launch_counts(), eng))
-    (eager, eager_launch, _), (staged, staged_launch, eng) = runs
-    assert staged == eager
-    assert staged_launch == eager_launch
-    assert staged_launch["paged_attention"] == \
-        eng.paged_rounds * eng.cfg.num_layers
-    st = eng.staged.stats()
-    recurring = sum(1 for n in st["calls"].values() if n > 1)
-    assert st["eager_calls"] == len(st["calls"]) > 1   # each B's first
-    assert st["captures"] >= recurring > 0
-    assert st["replays"] == eng.paged_rounds - st["eager_calls"] > 0
-
-
-@pytest.mark.cuda
-def test_a_host_sync_in_the_step_raises(cuda_device, jax_params):
-    """Capture refuses a host sync inside the step: the first round at
-    B = 1 runs eagerly, the second captures, and the engine raises there
-    and does not carry on eagerly."""
-    eng = _port_engine("qwen2-1.5b", jax_params, device=cuda_device)
-    step = eng.staged.step
-
-    def syncing(params, pool, page_table, lengths, token):
-        int(lengths.max())                  # a host sync
-        return step(params, pool, page_table, lengths, token)
-
-    eng.staged.step = syncing
-    eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
-                          max_new_tokens=4))
-    with pytest.raises(RuntimeError):
-        eng.run(10)
-    assert eng.staged.captures == 0
-    assert eng.paged_rounds == eng.staged.eager_calls == 1

@@ -19,9 +19,8 @@ position, K/V or state of the longer one behind.  ``Model.prefill`` reads
 no tensor value on the host: it runs on ``meta`` tensors, which hold
 none.  Modelling mode, as in ``test_torch_serve.py``.
 
-The ``cuda`` tests run the captured prefill graphs on the card: staged
-against eager, and a host sync inside prefill, which must make the
-engine raise at the length's second prefill rather than run eagerly.
+The captured prefill graphs' card tests, which need no JAX, are in
+``tests/test_torch_staged_card.py``.
 """
 
 import jax
@@ -41,7 +40,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import system_for
 from repro_torch.core.metrics import GLOBAL_METRICS
 from repro_torch.interop import params_from_numpy
-from repro_torch.kernels import cuda_build, ops
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
 from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
@@ -244,58 +243,3 @@ def test_a_prompt_past_the_token_buffer_is_refused(jax_params):
     with pytest.raises(ValueError, match="0 < S <= 16"):
         staged(params, torch.ones((1, 17), dtype=torch.int32))
     assert staged.stats()["calls"] == {}
-
-
-# ------------------------------------------------------------------ card
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA graphs have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
-def test_captured_prefill_graphs_match_eager_on_the_card(cuda_device,
-                                                         jax_params, arch):
-    """Staged against eager on the card: the same streams, link bytes,
-    hits and misses, prefill logits and launch counts; each length's
-    first prefill eager, its second captured, the rest replayed."""
-    runs = []
-    for staged in (False, True):
-        eng = _port_engine(arch, jax_params, device=cuda_device,
-                           staged=staged)
-        cuda_build.reset_launch_counts()
-        runs.append((_serve(eng, SubmitSpec), cuda_build.launch_counts(),
-                     eng))
-    (eager, eager_launch, _), (staged, staged_launch, eng) = runs
-    assert staged[0] == eager[0]
-    assert staged_launch == eager_launch
-    for got, want in zip(staged[2], eager[2]):
-        np.testing.assert_array_equal(got, want)
-    st = eng.staged_prefill.stats()
-    assert st["eager_calls"] == len(st["calls"]) == 3
-    assert st["captures"] == 3
-    assert st["replays"] == len(LOAD) - 6
-
-
-@pytest.mark.cuda
-def test_a_host_sync_in_prefill_raises(cuda_device, jax_params):
-    """Capture refuses a host sync inside prefill: a length's first
-    prefill runs eagerly, its second captures, and the engine raises there
-    and does not carry on eagerly."""
-    eng = _port_engine("qwen2-1.5b", jax_params, device=cuda_device)
-    prefill = eng.staged_prefill.step
-
-    def syncing(params, batch, cache):
-        int(batch["tokens"].sum())          # a host sync
-        return prefill(params, batch, cache)
-
-    eng.staged_prefill.step = syncing
-    for _ in range(2):
-        eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
-                              max_new_tokens=4))
-    with pytest.raises(RuntimeError):
-        eng.run(10)
-    assert eng.staged_prefill.captures == 0
-    assert eng.staged_prefill.eager_calls == 1

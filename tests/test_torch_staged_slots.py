@@ -16,9 +16,8 @@ another slot.  The cache's ``step`` is a 0-d int32 tensor, and the decode
 step reads no tensor value on the host: it runs on ``meta`` tensors,
 which hold none.  Modelling mode, as in ``test_torch_serve.py``.
 
-The ``cuda`` tests run the captured slot graphs on the card: staged
-against eager, and a host sync inside the step, which must make the
-engine raise at the slot's second step rather than run eagerly.
+The captured slot graphs' card tests, which need no JAX, are in
+``tests/test_torch_staged_card.py``.
 """
 
 import jax
@@ -39,7 +38,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import system_for
 from repro_torch.core.metrics import GLOBAL_METRICS
 from repro_torch.interop import params_from_numpy
-from repro_torch.kernels import cuda_build, ops
+from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.flags import Flags
 from repro_torch.serve import EngineConfig, ServeEngine, SubmitSpec
@@ -280,56 +279,3 @@ def test_a_ninth_request_goes_through_a_used_slot(modelling_reference,
     assert len(seated) == 9 and eng.staged.stats()["slots"] == 8
     assert [used for _, used in seated] == [False] * 8 + [True]
     assert eng.staged.calls[seated[8][0]] > load[8][1] - 1
-
-
-# ------------------------------------------------------------------ card
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (CUDA graphs have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
-def test_captured_slot_graphs_match_eager_on_the_card(cuda_device,
-                                                      jax_params, arch):
-    """Staged against eager on the card: the same streams, link bytes,
-    hits and misses and launch counts; each slot's first step eager, its
-    second captured, the rest replayed."""
-    runs = []
-    for staged in (False, True):
-        eng = _port_engine(arch, jax_params, device=cuda_device,
-                           staged=staged)
-        cuda_build.reset_launch_counts()
-        runs.append((_serve(eng, SubmitSpec), cuda_build.launch_counts(),
-                     eng))
-    (eager, eager_launch, _), (staged, staged_launch, eng) = runs
-    assert staged == eager
-    assert staged_launch == eager_launch
-    st = eng.staged.stats()
-    steps = st["calls"].values()
-    assert st["eager_calls"] == st["slots"] == ECFG["decode_slots"]
-    assert st["captures"] == sum(n > 1 for n in steps) > 0
-    assert st["replays"] == sum(steps) - st["eager_calls"] > 0
-
-
-@pytest.mark.cuda
-def test_a_host_sync_in_the_slot_step_raises(cuda_device, jax_params):
-    """Capture refuses a host sync inside the step: the slot's first step
-    runs eagerly, the second captures, and the engine raises there and
-    does not carry on eagerly."""
-    eng = _port_engine("h2o-danube-3-4b", jax_params, device=cuda_device)
-    step = eng.staged.step
-
-    def syncing(params, cache, token):
-        int(cache["step"])                  # a host sync
-        return step(params, cache, token)
-
-    eng.staged.step = syncing
-    eng.submit(SubmitSpec(prompt=np.arange(1, 9, dtype=np.int32),
-                          max_new_tokens=4))
-    with pytest.raises(RuntimeError):
-        eng.run(10)
-    assert eng.staged.captures == 0
-    assert eng.staged.eager_calls == 1

@@ -241,27 +241,36 @@ def _slot_calls(tr):
 @pytest.mark.parametrize("calls", [_prefill_calls, _step_calls, _slot_calls],
                          ids=["prefill", "step", "slot"])
 def test_staged_call_spans_count_as_the_counters(monkeypatch, calls):
-    """A shape's first call is ``staged.eager``, its second a
-    ``staged.capture`` holding the ``staged.replay`` that gives its
-    result, every later one a ``staged.replay``: each mode's spans count
-    what its counter counts, and carry ``fn`` and the call's key."""
+    """A shape's first call is ``staged.eager``; the first shape called
+    twice is a ``staged.capture`` at its second call, holding the
+    ``staged.replay`` that gives its result, and a ``staged.replay``
+    after; with no call timed (no card), no other shape is captured, and
+    its later calls are ``staged.eager`` with ``repeat``.  Each mode's
+    spans count what its counter counts, and carry ``fn`` and the call's
+    key."""
     monkeypatch.setattr(staged_mod._Staged, "_capture", _fake_capture)
     tr = SpanTracer()
     st, keys, eager = calls(tr)
     spans = [s for s in tr.spans() if s.name.startswith("staged.")
              and s.name != "staged.regrow"]
     calls_ = [s for s in spans if s.parent_id is None]
-    seen, want = {}, []
+    seen, want, first = {}, [], None
     for k in keys:
         seen[k] = seen.get(k, 0) + 1
-        want.append((["eager", "capture"] + ["replay"] * 9)[seen[k] - 1])
-    assert [(s.name[len("staged."):], s.args["key"]) for s in calls_] == \
-        list(zip(want, keys))
+        if first is None and seen[k] == 2:
+            first = k
+        mode = ((["eager", "capture"] + ["replay"] * 9)[seen[k] - 1]
+                if k == first else "eager")
+        want.append((mode, k, seen[k] > 1 if mode == "eager" else None))
+    assert [(s.name[len("staged."):], s.args["key"], s.args.get("repeat"))
+            for s in calls_] == want
     assert {s.args["fn"] for s in spans} == {st.FN}
     counts = {m: sum(s.name == "staged." + m for s in spans)
               for m in ("eager", "capture", "replay")}
     assert counts == {"eager": eager, "capture": st.captures,
                       "replay": st.replays}
+    assert sum(s.args["repeat"] for s in spans
+               if s.name == "staged.eager") == st.eager_repeats > 0
     for cap in (s for s in spans if s.name == "staged.capture"):
         kids = [s for s in spans if s.parent_id == cap.span_id]
         assert [(s.name, s.args["key"]) for s in kids] == [
