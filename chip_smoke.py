@@ -303,7 +303,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "rwkv6_scan",
-                  "expert_ffn")
+                  "expert_ffn", "mla_decode")
 #: the kernels each served path launches: the LMB-paged path (qwen2-1.5b,
 #: dbrx-132b; hymba-1.5b prefills through flash too) and rwkv6-7b's
 PAGED_KERNELS = ("paged_attention", "flash_attention")
@@ -342,6 +342,12 @@ EXAONE_PAGED_TOL = 0.1
 #: one LLLG period (every kind of layer once), 8 of 128 experts held
 EXAONE_SERVE_LAYERS = 5
 EXAONE_SERVE_HELD = 8
+#: deepseek-v3's latent attention (heads, cached row width, value width),
+#: its decode batch in the reasoning cell (B, T, MP, shortest and longest
+#: row) and the prompt its flash row times at q/k 192 and v 128
+DEEPSEEK_MLA = (128, 576, 512)
+DEEPSEEK_DECODE = (64, 32, 168, 1024, 5375)
+DEEPSEEK_PROMPT = 3072
 CHAMELEON_ATTN = (64, 8, 128)
 COMMAND_R_ATTN = (96, 8, 128)
 #: phase 4e's one long request: prompt tokens (past the 4,096-token
@@ -776,7 +782,7 @@ def kernel_phase(torch, serve_lengths, prompt_max):
                             device="cuda").to(torch.bfloat16)
                 for h in (h2h, h2kv, h2kv))
     granite = granite_paged_row(torch, pa)
-    return [*exaone_rows(torch, pa),
+    return [*exaone_rows(torch, pa), *deepseek_rows(torch),
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:106",
@@ -993,6 +999,96 @@ def exaone_rows(torch, pa) -> list:
             "path": "k-exaone-236b-a23b",
             "shape": f"T={tokens} D={D} d_ff={Fd} {held} of {E} experts "
                      f"held, top-{K}: {pairs} pairs on {reached} experts"})
+    return rows
+
+
+def deepseek_rows(torch) -> list:
+    """The ``kernels`` rows of deepseek-v3 (no serve phase runs it, so
+    their launches are None): the latent decode kernels at the reasoning
+    cell's decode batch over ``GRANITE_TIMED_LAYERS`` layer views of one
+    pool in turn, rows of every length from ``DEEPSEEK_DECODE``'s range
+    and a few at page and tile edges, and flash at q/k 192, v 128 over a
+    ``DEEPSEEK_PROMPT``-token prompt at 128 heads, each checked against
+    its plain version within 2e-2 (bf16).  The bounds: each row's cached
+    rows read once, q and the output; flash's q, k, v and output once
+    against its causal operations."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+    B, T, MP, lo, hi = DEEPSEEK_DECODE
+    H, W, DV = DEEPSEEK_MLA
+    lengths = [int(n) for n in np.random.default_rng(10).integers(
+        lo, hi + 1, B)]
+    lengths[:8] = [1, 31, 32, 33, 63, 64, 65, 0]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L = GRANITE_TIMED_LAYERS
+    pool = torch.randn((B * MP, L, T, W), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    table = torch.randperm(B * MP, generator=gen, device="cuda").to(
+        torch.int32).view(B, MP)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, H, W), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    scale = 0.135234
+    views = [pool[:, i] for i in range(L)]
+
+    def call(pages):
+        return md.mla_decode_cuda(q, pages, table, lens, scale=scale,
+                                  v_width=DV)
+    err = check(f"mla_decode deepseek-v3 decode B={B} H={H} T={T} MP={MP}",
+                call(views[0]), md.mla_decode_plain(
+                    q, views[0], table, lens, scale=scale, v_width=DV),
+                2e-2)
+    live = sum(lengths)
+    nbytes = (live * W + B * H * (W + DV)) * 2 + 4 * B * MP + 4 * B
+    flops = live * H * 2 * (W + DV)
+    times = both_times(cycled(call, [(v,) for v in views]))
+    rows = [{
+        "name": md.LAUNCHES, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+        "replaces": "none (latent attention: the JAX package has none)",
+        "launches": None, "max_abs_err": err, "ms": times["ms"],
+        "plain_ms": time_ms(lambda: md.mla_decode_plain(
+            q, views[0], table, lens, scale=scale, v_width=DV), iters=3,
+            repeats=2),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
+        "library_ms": None, "device_ms": times["device_ms"],
+        "path": "deepseek-v3",
+        "shape": f"B={B} H={H} row={W} v={DV} T={T} MP={MP} "
+                 f"live_tokens={live} bf16, plan "
+                 f"{md.split_plan(B, H, MP, sm_count=md.sm_count(q.device))}"
+                 f", {L} layer views in turn"}]
+    del pool, views
+    S = DEEPSEEK_PROMPT
+    qk = [torch.randn((1, S, H, 192), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2)]
+    v = torch.randn((1, S, H, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (*qk, v)
+    err = check(f"flash bfloat16 deepseek-v3 S={S} H={H} q/k 192 v 128",
+                fa.flash_attention_cuda(*args, scale=scale),
+                fa.flash_attention_plain(*args, scale=scale), 2e-2)
+    flops = 2 * H * (192 + 128) * S * (S + 1) / 2
+    nbytes = 2 * S * H * (192 + 128) * 2
+    times = both_times(lambda: fa.flash_attention_cuda(*args, scale=scale))
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:94",
+        "counter": fa.SPLIT_WIDTH_LAUNCHES,
+        "launches": None, "max_abs_err": err, "ms": times["ms"],
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+            *args, scale=scale), iters=2, repeats=2),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / PEAK_FLOPS["bfloat16"]) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / PEAK_FLOPS["bfloat16"] else "operations"),
+        "library_ms": None, "device_ms": times["device_ms"],
+        "path": "deepseek-v3",
+        "shape": f"B=1 S={S} H={H} KV={H} q/k 192 v 128 causal bf16"})
     return rows
 
 

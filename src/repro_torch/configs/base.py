@@ -80,6 +80,27 @@ class ArchConfig:
     #: mixed layer stack (``models/transformer.py``: ``dense_layers``,
     #: ``window_pattern``, the sigmoid-routed experts)
     post_norm: bool = False
+    #: "gqa": per-head K/V attention; "mla": DeepSeek-V3's latent
+    #: attention (``models/mla.py``), whose cache keeps one row a token
+    #: and layer: the normed ``kv_lora_rank`` latent and the
+    #: ``qk_rope_head_dim`` RoPE key that all heads share
+    attention: str = "gqa"
+    #: MLA widths: the low-rank q and kv projections, each head's q/k
+    #: part without positions and its RoPE part, and its v width
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    #: YaRN RoPE (0: plain RoPE): the context factor, the positions the
+    #: model was first trained at, the ramp's rotation bounds, and the
+    #: attention scale's exponents
+    yarn_factor: float = 0.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # MoE
     num_experts: int = 0
@@ -97,6 +118,11 @@ class ArchConfig:
     routed_scale: float = 1.0
     #: shared experts of ``d_ff`` each, run for every token
     shared_experts: int = 0
+    #: group-limited routing: the experts in ``n_group`` groups, a token
+    #: choosing among the ``topk_group`` groups whose two best biased
+    #: scores sum highest (1 and 1: among every expert)
+    n_group: int = 1
+    topk_group: int = 1
 
     # SSM / hybrid (hymba) & rwkv
     ssm_state: int = 16
@@ -129,6 +155,14 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    @property
+    def mixed(self) -> bool:
+        """Layers of more than one kind (``models/transformer.py``'s mixed
+        stack): leading dense layers, sigmoid-routed experts, latent
+        attention or EXAONE's post-norm blocks."""
+        return (self.dense_layers > 0 or self.router_score == "sigmoid"
+                or self.attention == "mla" or self.post_norm)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + trunk), for 6ND."""
@@ -209,6 +243,13 @@ class ArchConfig:
                          + max(1, len(self.window_pattern)),
                          num_experts=8, top_k=2, experts_held=4,
                          dense_d_ff=192)
+        if self.attention == "mla":
+            # one dense layer and four routed ones, a group limit that
+            # binds, a latent narrower than the heads' values
+            scale.update(num_layers=5, dense_layers=1, n_group=4,
+                         topk_group=2, q_lora_rank=48, kv_lora_rank=32,
+                         qk_nope_head_dim=16, qk_rope_head_dim=8,
+                         v_head_dim=16, head_dim=24)
         return dataclasses.replace(self, **scale)
 
 
@@ -240,6 +281,7 @@ def _load_all() -> None:
     from repro_torch.configs import chameleon_34b  # noqa: F401
     from repro_torch.configs import command_r_plus_104b  # noqa: F401
     from repro_torch.configs import dbrx_132b  # noqa: F401
+    from repro_torch.configs import deepseek_v3  # noqa: F401
     from repro_torch.configs import granite_34b  # noqa: F401
     from repro_torch.configs import h2o_danube_3_4b  # noqa: F401
     from repro_torch.configs import hymba_1_5b  # noqa: F401

@@ -69,7 +69,8 @@ CostAwareLRU's clean-page preference routinely did (self-thrash).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +86,19 @@ from repro_torch.obs.trace import SpanTracer
 
 ONBOARD = "onboard"
 LMB = "lmb"
+
+
+def _weakly(method) -> Callable[..., None]:
+    """A listener that calls the bound ``method`` while its object lives,
+    and does nothing after: the list that holds it keeps no object
+    alive."""
+    ref = weakref.WeakMethod(method)
+
+    def listener(*args) -> None:
+        bound = ref()
+        if bound is not None:
+            bound(*args)
+    return listener
 
 
 class InPlaceEviction(RuntimeError):
@@ -166,8 +180,12 @@ class LinkedBuffer:
         self._in_place: set = set()
         self.degraded = False
         self._closed = False
-        host.fm.on_failover(self._on_failover)
-        host.fm.on_repair(self._on_repair)
+        # the fabric holds the listeners weakly: a buffer nobody holds is
+        # freed, its onboard pool with it, while its fabric lives on
+        self._listeners = (_weakly(self._on_failover),
+                           _weakly(self._on_repair))
+        host.fm.on_failover(self._listeners[0])
+        host.fm.on_repair(self._listeners[1])
         # QoS link metering: every byte crossing to/from the LMB tier is
         # charged to this device's share of the expander link.  If the
         # caller's executor carries a meter hook AND actually fires it
@@ -1396,8 +1414,8 @@ class LinkedBuffer:
         quota through its buffers."""
         self.degraded = True
         self._closed = True
-        self.host.fm.off_failover(self._on_failover)
-        self.host.fm.off_repair(self._on_repair)
+        self.host.fm.off_failover(self._listeners[0])
+        self.host.fm.off_repair(self._listeners[1])
         self.executor.settle()      # (f): the pools' copies have landed
         for chunk, handle in enumerate(self._lmb_allocs):
             if handle is None:

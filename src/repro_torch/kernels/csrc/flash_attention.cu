@@ -56,6 +56,16 @@
 //   shared memory).  Tensor cores would mean TF32, which keeps about three
 //   decimal digits and would break the f32 card-against-CPU check at 1e-4.
 //
+// * bf16 at q/k width 192 and v/out width 128, for latent attention's
+//   expanded prefill (models/mla.py, DeepSeek-V3: 128 heads, a 128-wide
+//   part without positions and a 64-wide RoPE part).  A second template
+//   width, HDV, is the v and out width (HDV = HD in every other
+//   instantiation, whose code and shared memory it leaves as they were):
+//   K tiles are 192 wide, V tiles and the O accumulator 128, so nothing is
+//   padded to 256.  Q stays in registers (12 A fragments of 16 columns),
+//   beside O's 64 floats; K/V tiles hold 32 keys, so a block takes 98.8 KB
+//   of shared memory and two fit an SM.
+//
 // Not yet wgmma and TMA: those pay where the kernel is bound by
 // operations, past S ~ 700; at the serving path's S <= 256 mma.sync with
 // cp.async reaches the latency floor of a few serial tiles.
@@ -240,19 +250,24 @@ constexpr int kPairThreads = 64;
 constexpr int kThreads = kPairs * kPairThreads;
 constexpr int kBQ = 32;  // query rows per block: 16 per warp of a pair
 
-template <int HD>
+// HD: the q/k width (hd zero-padded up to it); HDV: the v/out width, HD
+// but for the split-width instantiation.
+template <int HD, int HDV = HD>
 struct TileCfg {
   static constexpr int kBK = HD <= 128 ? 64 : 32;  // keys per K/V tile
   static constexpr int kLd = HD + 8;  // row pitch (elements): +16 bytes
+  static constexpr int kLdV = HDV + 8;
   static constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  static constexpr bool kQInRegs = HD <= 128;
+  static constexpr int kChunksV = HDV / 8;
+  static constexpr bool kQInRegs = HD <= 128 || HDV < HD;
   // Q, then per pair two stages of K and two of V
   static constexpr size_t kSmem =
-      sizeof(bf16) * (kBQ + kPairs * 4 * kBK) * kLd;
+      sizeof(bf16) * ((kBQ + kPairs * 2 * kBK) * kLd +
+                      kPairs * 2 * kBK * kLdV);
   // what pair 1 hands to pair 0 per lane: O, then m and l of two rows
-  static constexpr int kHandoff = HD / 8 * 4 + 4;
+  static constexpr int kHandoff = HDV / 8 * 4 + 4;
   static_assert(2 * kHandoff * 32 * sizeof(float) <=
-                    kPairs * 4 * kBK * kLd * sizeof(bf16),
+                    kPairs * 2 * kBK * (kLd + kLdV) * sizeof(bf16),
                 "the hand-off must fit in the K/V rings");
 };
 
@@ -266,15 +281,19 @@ __device__ __forceinline__ void pair_sync(int pair) {
 // c[0..1] holds row g, columns 2t and 2t + 1 of its 16 x 8 tile, c[2..3]
 // row g + 8.  An A fragment a[0..3] holds (row g, k 2t..), (row g + 8,
 // k 2t..), (row g, k 2t + 8..), (row g + 8, k 2t + 8..).
-template <int HD>
+template <int HD, int HDV = HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int S, int H, int KV,
     int hd, int causal, int window, float scale_log2) {
-  using Cfg = TileCfg<HD>;
+  using Cfg = TileCfg<HD, HDV>;
   constexpr int kBK = Cfg::kBK;
   constexpr int kLd = Cfg::kLd;
+  constexpr int kLdV = Cfg::kLdV;
   constexpr int kChunks = Cfg::kChunks;
+  constexpr int kChunksV = Cfg::kChunksV;
+  // v's width: hd (padded up to HD) where the widths are one
+  const int hdv = HDV == HD ? hd : HDV;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest q tile first
   const int q0 = qt * kBQ;
@@ -289,15 +308,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [BQ][Ld]
-  bf16* ring = q_s + kBQ * kLd;  // per pair: K [2][BK][Ld], V [2][BK][Ld]
-  bf16* k_s = ring + pair * 4 * kBK * kLd;
+  bf16* ring = q_s + kBQ * kLd;  // per pair: K [2][BK][Ld], V [2][BK][LdV]
+  bf16* k_s = ring + pair * 2 * kBK * (kLd + kLdV);
   bf16* v_s = k_s + 2 * kBK * kLd;
 
   const int64_t q_row = (int64_t)H * hd;
   const int64_t kv_row = (int64_t)KV * hd;
+  const int64_t v_row = (int64_t)KV * hdv;
+  const int64_t o_row = (int64_t)H * hdv;
   const bf16* qb = q + (int64_t)b * S * q_row + (int64_t)h * hd;
   const bf16* kb = k + (int64_t)b * S * kv_row + (int64_t)kvh * hd;
-  const bf16* vb = v + (int64_t)b * S * kv_row + (int64_t)kvh * hd;
+  const bf16* vb = v + (int64_t)b * S * v_row + (int64_t)kvh * hdv;
 
   // Q tile, by the whole block; rows past S and columns past hd are zero
   for (int i = tid; i < kBQ * kChunks; i += kThreads) {
@@ -313,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
   auto load_kv = [&](int kt, int stage) {  // by this pair's 64 threads
     const int k0 = kt * kBK;
     bf16* ks = k_s + stage * kBK * kLd;
-    bf16* vs = v_s + stage * kBK * kLd;
+    bf16* vs = v_s + stage * kBK * kLdV;
     for (int i = ptid; i < kBK * kChunks; i += kPairThreads) {
       const int j = i / kChunks;
       const int d = (i % kChunks) * 8;
@@ -321,7 +342,17 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
       const bool in = kpos < S && d < hd;
       const int64_t off = in ? kpos * kv_row + d : 0;
       cp_async16(smem_addr(ks + j * kLd + d), kb + off, in);
-      cp_async16(smem_addr(vs + j * kLd + d), vb + off, in);
+      if (HDV == HD) cp_async16(smem_addr(vs + j * kLd + d), vb + off, in);
+    }
+    if constexpr (HDV != HD) {
+      for (int i = ptid; i < kBK * kChunksV; i += kPairThreads) {
+        const int j = i / kChunksV;
+        const int d = (i % kChunksV) * 8;
+        const int kpos = k0 + j;
+        const bool in = kpos < S;
+        cp_async16(smem_addr(vs + j * kLdV + d),
+                   vb + (in ? kpos * v_row + d : 0), in);
+      }
     }
   };
 
@@ -346,9 +377,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
                                     kk * 16 + (lane >> 4) * 8));
   }
 
-  float o[HD / 8][4];
+  float o[HDV / 8][4];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < HDV / 8; ++j)
     o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's part of the row sums
@@ -368,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
     }
     pair_sync(pair);
     const bf16* ks = k_s + stage * kBK * kLd;
-    const bf16* vs = v_s + stage * kBK * kLd;
+    const bf16* vs = v_s + stage * kBK * kLdV;
     const int k0 = kt * kBK;
 
     // S = Q K^T: per 16-deep slice, one ldmatrix.x4 feeds two 8-key blocks
@@ -431,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
       m[i] = mx[i];
       l[i] *= alpha;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDV / 8; ++j) {
         o[j][2 * i] *= alpha;
         o[j][2 * i + 1] *= alpha;
       }
@@ -455,10 +486,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-      for (int db = 0; db < HD / 16; ++db) {
+      for (int db = 0; db < HDV / 16; ++db) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, smem_addr(vs + (kk * 16 + (lane & 7) +
-                                              ((lane >> 3) & 1) * 8) * kLd +
+                                              ((lane >> 3) & 1) * 8) * kLdV +
                                         db * 16 + (lane >> 4) * 8));
         mma_bf16(o[2 * db], pf[kk], bv[0], bv[1]);
         mma_bf16(o[2 * db + 1], pf[kk], bv[2], bv[3]);
@@ -474,13 +505,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
   __syncthreads();
   if (pair == 1) {
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < HDV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) xs[(j * 4 + e) * 32 + lane] = o[j][e];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      xs[(HD / 2 + i) * 32 + lane] = m[i];
-      xs[(HD / 2 + 2 + i) * 32 + lane] = l[i];
+      xs[(HDV / 2 + i) * 32 + lane] = m[i];
+      xs[(HDV / 2 + 2 + i) * 32 + lane] = l[i];
     }
   }
   __syncthreads();
@@ -489,46 +520,46 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16_kernel(
   float w0[2], w1[2], inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float m1 = xs[(HD / 2 + i) * 32 + lane];
+    const float m1 = xs[(HDV / 2 + i) * 32 + lane];
     const float M = fmaxf(m[i], m1);
     w0[i] = m[i] == -INFINITY ? 0.f : exp2f(m[i] - M);
     w1[i] = m1 == -INFINITY ? 0.f : exp2f(m1 - M);
-    float lt = l[i] * w0[i] + xs[(HD / 2 + 2 + i) * 32 + lane] * w1[i];
+    float lt = l[i] * w0[i] + xs[(HDV / 2 + 2 + i) * 32 + lane] * w1[i];
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     inv[i] = lt > 0.f ? 1.f / lt : 0.f;
   }
-  bf16* ob = out + (int64_t)b * S * q_row + (int64_t)h * hd;
+  bf16* ob = out + (int64_t)b * S * o_row + (int64_t)h * hdv;
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < HDV / 8; ++j) {
     float r[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       r[e] = (o[j][e] * w0[e >> 1] + xs[(j * 4 + e) * 32 + lane] *
               w1[e >> 1]) * inv[e >> 1];
     const int d = j * 8 + 2 * (lane & 3);
-    if (d >= hd) continue;  // zero-padded head_dim columns
+    if (d >= hdv) continue;  // zero-padded head_dim columns
     if (r_lo < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r_lo * q_row + d) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + r_lo * o_row + d) =
           __floats2bfloat162_rn(r[0], r[1]);
     if (r_hi < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r_hi * q_row + d) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + r_hi * o_row + d) =
           __floats2bfloat162_rn(r[2], r[3]);
   }
 }
 
-template <int HD>
+template <int HD, int HDV = HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int S, int H, int KV, int hd,
                         int causal, int window, float scale,
                         cudaStream_t stream) {
-  constexpr size_t smem = TileCfg<HD>::kSmem;
+  constexpr size_t smem = TileCfg<HD, HDV>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<HD>,
+      flash_attention_bf16_kernel<HD, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_attention_bf16_kernel<HD, HDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, KV, hd,
       causal, window, scale * 1.4426950408889634f);
@@ -538,16 +569,24 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
-// kernel).  q/out [B, S, H, hd] and k/v [B, S, KV, hd], all contiguous,
-// hd a multiple of 8 in 16..256.  window <= 0 means no window.  Returns
-// a cudaError_t (0 on success).
+// kernel).  q [B, S, H, hd], k [B, S, KV, hd], v [B, S, KV, hdv] and out
+// [B, S, H, hdv], all contiguous, hd a multiple of 8 in 16..256 and hdv =
+// hd, or bf16 at hd 192 and hdv 128.  window <= 0 means no window.
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
-                                      int H, int KV, int hd, int causal,
-                                      int window, float scale, void* stream) {
+                                      int H, int KV, int hd, int hdv,
+                                      int causal, int window, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 16 || hd > 256)
     return (int)cudaErrorInvalidValue;
+  if (hdv != hd) {
+    if (dtype != 1 || hd != 192 || hdv != 128)
+      return (int)cudaErrorInvalidValue;
+    return launch_bf16<192, 128>(q, k, v, out, B, S, H, KV, hd, causal,
+                                 window, scale, s);
+  }
   if (dtype == 0)
     return launch_f32(q, k, v, out, B, S, H, KV, hd, causal, window, scale,
                       s);

@@ -93,6 +93,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "splits.cuh"
 
 namespace {
 
@@ -105,17 +106,6 @@ constexpr int kMaxGroups = 64;    // kThreads / the smallest lpt (2)
 constexpr int kAccFloats = 1024;
 constexpr int kMaxSplits = 512;   // the combine kernel's weights in smem
 constexpr float kLog2e = 1.4426950408889634f;
-
-// The first key a row of len tokens attends under a window (0: none).
-__device__ __forceinline__ int window_lo(int len, int window) {
-  return window > 0 ? max(0, len - window) : 0;
-}
-
-// The first token of the page that holds window_lo: where the row's first
-// split starts.
-__device__ __forceinline__ int window_base(int len, int T_, int window) {
-  return window_lo(len, window) / T_ * T_;
-}
 
 // NC: 16-byte chunks of a head row per lane (2 only for f32 at hd > 128).
 // Scores are kept in log2 units (scale * log2 e folded in), so every
@@ -319,29 +309,6 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   }
 }
 
-// A row's live splits: ceil((min(len, cap) - base) / tps), cap = MP * T
-// the page table's tokens, tps = pages_per_split * T, base its window's
-// first page's first token (0 without a window).
-__device__ __forceinline__ int live_splits_of(int len, int tps, int cap,
-                                              int T_, int window) {
-  if (len <= 0) return 0;
-  return max(0, min(len, cap) - window_base(len, T_, window) + tps - 1) / tps;
-}
-
-__device__ __forceinline__ float block_reduce(float v, float* red,
-                                              bool take_max) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = take_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read by an earlier reduction
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < kThreads / 32; ++w)
-    v = take_max ? fmaxf(v, red[w]) : v + red[w];
-  return v;
-}
-
 // One block per (b, head): out = sum_s acc_s w_s / sum_s l_s w_s with
 // w_s = 2^(m_s - M), empty splits (m_s = -inf, acc never written) skipped.
 // With lengths (the tensor-core design) only row b's live splits are read:
@@ -363,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   const float* ml = part_ml + 2 * bh * n_splits;
   float M = -INFINITY;
   for (int s = threadIdx.x; s < n; s += kThreads) M = fmaxf(M, ml[2 * s]);
-  M = block_reduce(M, red, true);
+  M = block_reduce<kThreads>(M, red, true);
   float L = 0.f;
   for (int s = threadIdx.x; s < n; s += kThreads) {
     const float m = ml[2 * s];
@@ -371,7 +338,7 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     w_s[s] = w;
     L = fmaf(ml[2 * s + 1], w, L);
   }
-  L = block_reduce(L, red, false);  // its barriers publish w_s too
+  L = block_reduce<kThreads>(L, red, false);  // its barriers publish w_s too
   const float inv = L > 0.f ? 1.f / L : 0.f;  // length-0 rows -> 0
   const float* acc = part_acc + bh * n_splits * hd;
   for (int d = threadIdx.x; d < hd; d += kThreads) {
@@ -414,51 +381,6 @@ struct MmaCfg {
   static_assert((kSlices - 1) * NT * kHandoff * 32 * 4 <= kRingBytes,
                 "the hand-off must fit in the ring");
 };
-
-__device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-// The batch's live splits, in every lane of the calling warp.
-__device__ __forceinline__ int batch_live_splits(const int* lengths, int B,
-                                                 int tps, int cap, int T_,
-                                                 int window, int lane) {
-  int n = 0;
-  for (int b = lane; b < B; b += 32)
-    n += live_splits_of(lengths[b], tps, cap, T_, window);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
-  return n;
-}
-
-// Row b and split s of the batch's live split number rc (rows in order,
-// each row's live splits in order), in every lane of the calling warp.
-__device__ __forceinline__ void locate_split(const int* lengths, int B,
-                                             int tps, int cap, int T_,
-                                             int window, int rc, int lane,
-                                             int& b, int& s) {
-  int base = 0;
-  for (int b0 = 0; b0 < B; b0 += 32) {
-    const int n = b0 + lane < B ? live_splits_of(lengths[b0 + lane], tps, cap,
-                                                 T_, window)
-                                : 0;
-    const int inc = warp_inclusive_sum(n, lane);
-    const unsigned hit = __ballot_sync(0xffffffffu, base + inc > rc);
-    if (hit) {
-      const int f = __ffs(hit) - 1;
-      b = b0 + f;
-      s = rc - base - __shfl_sync(0xffffffffu, inc - n, f);
-      return;
-    }
-    base += __shfl_sync(0xffffffffu, inc, 31);
-  }
-  b = s = 0;  // rc is past the live splits: not reached
-}
 
 // Fragment layout of mma m16n8k16 (lane = 4 g + t): an accumulator
 // c[0..1] holds row g, columns 2t and 2t + 1 of its 16 x 8 tile, c[2..3]

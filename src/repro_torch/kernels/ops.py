@@ -24,11 +24,13 @@ import torch
 
 from repro_torch.kernels import expert_ffn as _ef
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rwkv6_scan as _rw
 
 _calls: Dict[str, int] = {"flash_attention": 0, "paged_attention_decode": 0,
-                          "rwkv6_scan": 0, "ssd_scan": 0, "expert_ffn": 0}
+                          "rwkv6_scan": 0, "ssd_scan": 0, "expert_ffn": 0,
+                          "mla_decode": 0}
 
 
 def dispatch_counts() -> Dict[str, int]:
@@ -56,14 +58,17 @@ def refuse_autograd(name: str, plain: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None):
-    """[B,S,H,hd] x [B,S,KV,hd] -> [B,S,H,hd]."""
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None):
+    """[B,S,H,hd] x [B,S,KV,hd] x [B,S,KV,hdv] -> [B,S,H,hdv]; ``scale``
+    1 / sqrt(hd) if None."""
     _calls["flash_attention"] += 1
     if q.is_cuda:
         refuse_autograd("flash_attention", "flash_attention_plain", q, k, v)
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window)
-    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+                                        window=window, scale=scale)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
 
 
 def rwkv6_scan(r, k, v, w, u, state, chunk: int = 64):
@@ -101,6 +106,21 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, lengths,
                                         lengths, window=window)
     return _pa.paged_attention_plain(q, k_pages, v_pages, page_table,
                                      lengths, window=window)
+
+
+def mla_decode(q, pages, page_table, lengths, *, scale: float,
+               v_width: int):
+    """Latent attention's absorbed decode: q [B,H,Dk] against one layer's
+    (possibly strided) latent pages [P,T,Dk] through ``page_table``
+    [B,MP] int32, over ``lengths`` rows; v is each row's first
+    ``v_width`` columns -> [B,H,v_width]."""
+    _calls["mla_decode"] += 1
+    if q.is_cuda:
+        refuse_autograd("mla_decode", "mla_decode_plain", q, pages)
+        return _mla.mla_decode_cuda(q, pages, page_table, lengths,
+                                    scale=scale, v_width=v_width)
+    return _mla.mla_decode_plain(q, pages, page_table, lengths, scale=scale,
+                                 v_width=v_width)
 
 
 def expert_ffn(x, ids, gates, w_gate, w_up, w_down):

@@ -17,8 +17,10 @@ dbrx-132b: 16 experts, top-4; mixtral-8x22b: 8 experts, top-2.
 :func:`routed_apply` is the other expert layer (``router_score
 "sigmoid"``, k-exaone-236b-a23b), which the JAX package does not have:
 DeepSeek-V3's router (sigmoid scores in f32 over all ``num_experts``, the
-top_k of the scores plus a per-expert selection bias, gates the chosen
-scores normalised over their sum and scaled by ``routed_scale``), no
+top_k of the scores plus a per-expert selection bias, among the
+``topk_group`` of ``n_group`` expert groups whose two best biased scores
+sum highest where ``n_group`` > 1, gates the chosen scores normalised
+over their sum and scaled by ``routed_scale``), no
 capacity and no drops, computed for the ``experts_held`` experts the
 layer holds, ids ``first..first+held-1`` (the chip's share of an
 expert-parallel deployment; the absent experts' part is left out), plus
@@ -160,13 +162,31 @@ def routed_init(gen: torch.Generator, cfg, n: Optional[int] = None) -> Params:
     return p
 
 
+def group_limit(b: torch.Tensor, n_group: int,
+                topk_group: int) -> torch.Tensor:
+    """Biased scores b [T, E] with every expert outside each token's
+    ``topk_group`` best of ``n_group`` equal groups set to -inf, a group
+    ranked by the sum of its two best scores (DeepSeek-V3's
+    ``noaux_tc``)."""
+    T, E = b.shape
+    g = b.view(T, n_group, E // n_group)
+    best = g.topk(2, dim=-1).values.sum(dim=-1)                # [T, groups]
+    keep = torch.zeros_like(best, dtype=torch.bool).scatter_(
+        1, best.topk(topk_group, dim=-1).indices, True)
+    return g.masked_fill(~keep[..., None], float("-inf")).view(T, E)
+
+
 def route_sigmoid(p: Params, cfg, xt: torch.Tensor):
     """xt [T, D] -> (expert ids [T, K], gates [T, K] f32): the top_k of
-    ``sigmoid(xt W_r) + select_bias`` in descending order, gated by their
+    ``sigmoid(xt W_r) + select_bias`` in descending order (among the
+    :func:`group_limit` groups where ``cfg.n_group`` > 1), gated by their
     scores (without the bias) over the scores' sum, times
     ``routed_scale``."""
     s = torch.sigmoid(xt.float() @ p["router"])                # [T, E]
-    ids = torch.topk(s + p["select_bias"], cfg.top_k, dim=-1).indices
+    b = s + p["select_bias"]
+    if cfg.n_group > 1:
+        b = group_limit(b, cfg.n_group, cfg.topk_group)
+    ids = torch.topk(b, cfg.top_k, dim=-1).indices
     w = torch.gather(s, 1, ids)
     return ids, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * cfg.routed_scale
 
@@ -184,7 +204,8 @@ def routed_apply(p: Params, cfg, x: torch.Tensor, first: int = 0,
     on = (trace is not None and trace.enabled
           and not (x.is_cuda and torch.cuda.is_current_stream_capturing()))
     with (trace.span("moe.route", op="moe", tokens=B * S,
-                     held=p["w_gate"].shape[0], top_k=cfg.top_k)
+                     held=p["w_gate"].shape[0], top_k=cfg.top_k,
+                     n_group=cfg.n_group, topk_group=cfg.topk_group)
           if on else NULL_SPAN):
         ids, gates = route_sigmoid(p, cfg, xt)
     y = kops.expert_ffn(xt, ids - first, gates, p["w_gate"], p["w_up"],

@@ -11,16 +11,18 @@ Caches and pools are updated **in place**.  The full-sequence trunk
 encoder; under ``flags.remat`` each layer's body is activation-checkpointed
 (:func:`_remat`, the reference's ``jax.checkpoint`` around its scan body).
 
-A mixed stack (``cfg.post_norm``: k-exaone-236b-a23b, which the JAX
-package does not have) is EXAONE 4.0's post-norm block over layers of two
-kinds: it keeps its layers' attention and norms stacked on [L], its
-leading dense layers' MLP on [dense_layers] (``mlp``, width
-``dense_d_ff``) and the rest's sigmoid-routed experts on [L -
-dense_layers] (``moe``); :func:`mixed_layer` gives layer l's params, and
-prefill and paged decode run :func:`mixed_block` with layer l's own
-window and RoPE (it serves on the paged path only: no training step, no
-dense slot step).  Its cache keeps every layer's K/V of every token,
-windowed layers too.
+A mixed stack (``cfg.mixed``: layers of more than one kind, which the
+JAX package does not have: k-exaone-236b-a23b, deepseek-v3) keeps its
+layers' attention and norms stacked on [L], its leading dense layers' MLP
+on [dense_layers] (``mlp``, width ``dense_d_ff``) and the rest's
+sigmoid-routed experts on [L - dense_layers] (``moe``);
+:func:`mixed_layer` gives layer l's params, and prefill and paged decode
+run :func:`mixed_block`, EXAONE 4.0's post-norm block (``cfg.post_norm``)
+or the pre-norm one, with layer l's own attention: GQA with its window
+and RoPE, or latent attention (``cfg.attention == "mla"``,
+``models/mla.py``).  It serves on the paged path only: no training step,
+no dense slot step.  Its cache keeps every layer's entries of every
+token, windowed layers too: K/V, or one latent row (``latent``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import DENSE, HYBRID, MOE, RWKV6, ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
@@ -46,12 +49,17 @@ from repro_torch.sharding.constraints import constrain
 RWKV_KEYS = ("tmix_prev", "wkv", "cmix_prev")
 #: a HYBRID layer's SSM state, kept beside its KV
 SSM_KEYS = ("conv", "ssm")
+#: the [L]-stacked leaves that hold one entry a token (a prefill resets
+#: them): K and V, or latent attention's rows
+TOKEN_KEYS = ("k", "v", "latent")
 
 
 def _layer_keys(cfg: ArchConfig) -> tuple:
     """The [L]-stacked leaves of the decode cache."""
     if cfg.block_type == RWKV6:
         return RWKV_KEYS
+    if cfg.attention == "mla":
+        return ("latent",)
     return ("k", "v") + (SSM_KEYS if cfg.block_type == HYBRID else ())
 
 
@@ -111,13 +119,16 @@ def num_layers(layers: Params) -> int:
 
 # -------------------------------------------------------------- mixed stack
 def mixed_init(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """A mixed stack's params: norms and attention for all L layers, the
-    dense layers' MLP and the other layers' sigmoid-routed experts."""
+    """A mixed stack's params: norms and attention (GQA or latent) for all
+    L layers, the dense layers' MLP and the other layers' sigmoid-routed
+    experts."""
     L = cfg.num_layers
     Ld = min(cfg.dense_layers, L)
+    init = mla_mod.mla_init if cfg.attention == "mla" else \
+        attn.attention_init
     p: Params = {"norm1": rms_norm_init(cfg.d_model, gen.device, L),
                  "norm2": rms_norm_init(cfg.d_model, gen.device, L),
-                 "attn": attn.attention_init(gen, cfg, L)}
+                 "attn": init(gen, cfg, L)}
     if Ld:
         p["mlp"] = mlp_init(gen, dataclasses.replace(
             cfg, d_ff=cfg.dense_d_ff, act="swiglu"), Ld)
@@ -139,14 +150,20 @@ def mixed_layer(layers: Params, cfg: ArchConfig, l: int) -> Params:
 
 def mixed_block(lp: Params, cfg: ArchConfig, x: torch.Tensor, attend,
                 trace=None) -> torch.Tensor:
-    """One layer of a mixed stack, ``attend(h)`` its attention on ``h``:
-    ``x + norm1(attn(x))``, then ``+ norm2(ffn(.))``, the FFN the dense
-    MLP or the routed experts."""
+    """One layer of a mixed stack, ``attend(h)`` its attention on ``h``,
+    the FFN the dense MLP or the routed experts.  Post-norm
+    (``cfg.post_norm``): ``x + norm1(attn(x))``, then ``+ norm2(ffn(.))``;
+    pre-norm: ``x + attn(norm1(x))``, then ``+ ffn(norm2(.))``."""
     eps = cfg.norm_eps
-    x = x + rms_norm(lp["norm1"], attend(x), eps)
-    y = (mlp_apply(lp["mlp"], x, "swiglu") if "mlp" in lp
-         else moe_mod.routed_apply(lp["moe"], cfg, x, trace=trace))
-    return x + rms_norm(lp["norm2"], y, eps)
+
+    def ffn(h):
+        return (mlp_apply(lp["mlp"], h, "swiglu") if "mlp" in lp
+                else moe_mod.routed_apply(lp["moe"], cfg, h, trace=trace))
+    if cfg.post_norm:
+        x = x + rms_norm(lp["norm1"], attend(x), eps)
+        return x + rms_norm(lp["norm2"], ffn(x), eps)
+    x = x + attend(rms_norm(lp["norm1"], x, eps))
+    return x + ffn(rms_norm(lp["norm2"], x, eps))
 
 
 #: the ops whose outputs the "dots" policy keeps: matmuls without batch
@@ -230,7 +247,7 @@ def trunk_train(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     """Loop over layers for full sequences, each layer under
     :func:`_remat`; returns (x, the layers' summed aux loss as an f32
     scalar tensor)."""
-    if cfg.post_norm:
+    if cfg.mixed:
         raise NotImplementedError(f"{cfg.name}: a mixed stack serves only")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body = _remat(block_train, flags)
@@ -268,6 +285,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
                 "cmix_prev": torch.zeros((L, batch, 1, D), dtype=dt,
                                          device=device)}
     C = cache_len(cfg, seq_len)
+    if cfg.attention == "mla":
+        return {"step": step,
+                "latent": torch.zeros((L, batch, C, mla_mod.latent_width(cfg)),
+                                      dtype=dt, device=device),
+                "pos": torch.full((batch, C), -1, dtype=torch.int32,
+                                  device=device)}
     KV, hd = cfg.num_kv_heads, cfg.head_dim_
     cache = {"step": step,
              "k": torch.zeros((L, batch, C, KV, hd), dtype=dt, device=device),
@@ -329,12 +352,18 @@ def block_prefill(p: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def _mixed_prefill(layers: Params, cfg: ArchConfig, l: int,
                    x: torch.Tensor, positions: torch.Tensor, flags: Flags,
-                   trace=None):
-    """Layer ``l`` of a mixed stack over the prompt: (x, its K/V)."""
+                   trace=None, rope=None):
+    """Layer ``l`` of a mixed stack over the prompt: (x, its cache
+    entries: K/V, or the latent rows, which take the prompt's
+    ``mla.rope_tables``)."""
     lp = mixed_layer(layers, cfg, l)
     kv = {}
 
     def attend(h):
+        if cfg.attention == "mla":
+            a, kv["latent"] = mla_mod.mla_prefill(lp["attn"], cfg, h, rope,
+                                                  flags)
+            return a
         a, (kv["k"], kv["v"]) = attn.attn_forward(
             lp["attn"], cfg, h, positions, causal=True, flags=flags,
             return_kv=True, layer_idx=l)
@@ -354,19 +383,21 @@ def trunk_prefill(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     writing into it."""
     S = x.shape[1]
     keys = _layer_keys(cfg)
-    for key in ("k", "v"):
+    for key in TOKEN_KEYS:
         if key in cache:
             cache[key].zero_()
-    mixed = cfg.post_norm
+    mixed = cfg.mixed
+    rope = (mla_mod.rope_tables(cfg, positions) if cfg.attention == "mla"
+            else None)
     for l in range(num_layers(layers)):
         if mixed:
             x, entries = _mixed_prefill(layers, cfg, l, x, positions, flags,
-                                        trace)
+                                        trace, rope)
         else:
             x, entries = block_prefill(layer(layers, l), cfg, x, positions,
                                        flags)
         for key in keys:
-            if key in ("k", "v"):
+            if key in TOKEN_KEYS:
                 _ring_fill(cache[key][l], entries[key],
                            cache[key].shape[2])           # in place
             else:
@@ -418,7 +449,7 @@ def trunk_decode(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     updated in place and returned.  ``step`` stays on the device: it is
     passed down as a tensor and advanced in place, so a step captured
     against a static cache moves it on at every replay."""
-    if cfg.post_norm:
+    if cfg.mixed:
         raise NotImplementedError(f"{cfg.name}: a mixed stack decodes on "
                                   "the paged path only")
     step = cache["step"]
@@ -439,25 +470,38 @@ def trunk_decode_paged(layers: Params, cfg: ArchConfig, x: torch.Tensor,
     """Decode one token per sequence straight from the paged KV pool.
 
     x          [B, 1, D]
-    pool       [P, L, 2, T, KV, hd]  the serving pool (PagedKVStore layout)
+    pool       [P, *page]            the serving pool (the model's page
+                                     layout, ``models/pages.py``): [P, L,
+                                     2, T, KV, hd], or [P, L, T, latent]
     page_table [B, MP] int32         pool page indices (-1 pad)
     lengths    [B] int32             tokens stored per sequence (pre-step)
 
-    Each layer reads the strided views ``pool[:, l, 0]`` / ``pool[:, l, 1]``
-    (no restacking of the pool) and the new token's K/V is scattered into
-    each sequence's tail page in place.  Returns x.  DENSE and MOE blocks
-    (their bodies mirror :func:`block_decode`'s with the paged attention).
+    Each layer reads strided views of its part of the pool (``pool[:, l,
+    0]`` / ``pool[:, l, 1]``, or ``pool[:, l]``; no restacking of the pool)
+    and the new token's entries are scattered into each sequence's tail
+    page in place.  Returns x.  DENSE and MOE blocks (their bodies mirror
+    :func:`block_decode`'s with the paged attention).
     """
     if cfg.block_type not in (DENSE, MOE):
         raise NotImplementedError(
             f"{cfg.name}: paged decode covers DENSE and MOE blocks only")
-    mixed = cfg.post_norm
+    mixed = cfg.mixed
+    rope = (mla_mod.rope_tables(cfg, lengths[:, None])
+            if cfg.attention == "mla" else None)
     for l in range(num_layers(layers)):
         if mixed:
             lp = mixed_layer(layers, cfg, l)
-            x = mixed_block(lp, cfg, x, lambda h: attn.attn_decode_paged(
-                lp["attn"], cfg, h, pool[:, l, 0], pool[:, l, 1], page_table,
-                lengths, flags, layer_idx=l)[0], trace)
+            if rope is not None:
+                def attend(h):
+                    return mla_mod.mla_decode_paged(
+                        lp["attn"], cfg, h, pool[:, l], page_table, lengths,
+                        rope)
+            else:
+                def attend(h):
+                    return attn.attn_decode_paged(
+                        lp["attn"], cfg, h, pool[:, l, 0], pool[:, l, 1],
+                        page_table, lengths, flags, layer_idx=l)[0]
+            x = mixed_block(lp, cfg, x, attend, trace)
             continue
         lp = layer(layers, l)
         xn = rms_norm(lp["norm1"], x, cfg.norm_eps)

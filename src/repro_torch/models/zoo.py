@@ -14,11 +14,13 @@ cross-entropy plus ``AUX_LOSS_WEIGHT`` times the MoE load-balancing loss.
 (``launch/dryrun.py``) every input of a step as ``meta`` tensors: shapes
 and dtypes, no storage.
 
-A mixed stack (``cfg.post_norm``: k-exaone-236b-a23b) reads
+A mixed stack (``cfg.mixed``: k-exaone-236b-a23b, deepseek-v3) reads
 out through its own matrix (``readout``) where ``tie_embeddings`` is
 false; every other model reads out through the embedding table, as in
 the reference.  ``trace`` (a ``SpanTracer``, set by the serving engine)
-lets its expert layers record their routing (``moe.route``).
+lets its expert layers record their routing (``moe.route``).  How a
+model's cache becomes KV pages is ``models/pages.py``'s, which the
+serving store and engine take.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class Model:
         }
         if cfg.encoder_decoder:
             params["trunk"] = encdec_mod.encdec_init(generator, cfg)
-        elif cfg.post_norm:
+        elif cfg.mixed:
             params["trunk"] = mixed_init(generator, cfg)
             if not cfg.tie_embeddings:
                 params["readout"] = dense_init(
@@ -188,13 +190,13 @@ class Model:
                           token: torch.Tensor):
         """One batched decode step straight against the paged KV pool.
 
-        pool       [P, L, 2, T, KV, hd]  page-major (PagedKVStore layout)
+        pool       [P, *page]            page-major (``models/pages.py``)
         page_table [B, MP] int32         pool page indices (-1 pad)
         lengths    [B] int32             tokens stored per sequence
         token      [B, 1] int32
 
-        Returns (logits [B, V], pool): the new token's K/V is written in
-        place into each sequence's tail page across all layers — the
+        Returns (logits [B, V], pool): the new token's entries are written
+        in place into each sequence's tail page across all layers — the
         kernels read per-layer strided views of the pool, which is never
         restacked.
         """

@@ -49,6 +49,7 @@ from repro_torch.core.client import LMBSystem
 from repro_torch.core.pool import OutOfMemory
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.paged_attention import pages_read
+from repro_torch.models import pages
 from repro_torch.models.attention import layer_attention
 from repro_torch.models.zoo import Model
 from repro_torch.obs.trace import DEFAULT_RING_CAPACITY, NULL_SPAN, SpanTracer
@@ -347,7 +348,7 @@ class ServeEngine:
         toks = torch.as_tensor(req.prompt[None], dtype=torch.int32)
         logits, cache = self._prefill_fn(self.params, toks)
         req.seq_id = self.kv.new_seq()
-        kv = self._cache_to_pages(cache, len(req.prompt))
+        kv = pages.cache_rows(cache, len(req.prompt))
         if kv is not None:
             self.kv.append_tokens(req.seq_id, kv)
         else:
@@ -370,13 +371,6 @@ class ServeEngine:
             if tr.enabled:
                 tr.event("ttft", tenant=req.tenant, op="serve",
                          req=req.req_id, ttft_s=ttft)
-
-    def _cache_to_pages(self, cache, length: int):
-        if "k" not in cache:
-            return None                           # rwkv: O(1) state
-        k = cache["k"][:, 0, :length]             # [L, len, KV, hd]
-        v = cache["v"][:, 0, :length]
-        return torch.stack([k, v], dim=1)         # [L, 2, len, KV, hd]
 
     # ------------------------------------------------------------- decode
     def _qos_gate(self, req: Request) -> Decision:
@@ -671,7 +665,7 @@ class ServeEngine:
                   if tr.enabled else NULL_SPAN):
                 nxt = int(torch.argmax(logits[0]))
             self._take_token(req, nxt)
-            kv_new = self._decode_kv_tail(
+            kv_new = pages.step_rows(
                 cache, self.kv.seq(req.seq_id).length)
             try:
                 if kv_new is not None:
@@ -744,13 +738,20 @@ class ServeEngine:
         """The pages the round's paged step reads for rows of ``lengths``
         stored tokens (the new one makes ``lengths + 1``), summed over
         its windowed layers (``window_pages``) and its full layers
-        (``full_pages``)."""
+        (``full_pages``); where the store's pages hold latent rows also
+        the bytes of the rows its layers read (``latent_bytes``: a page's
+        bytes over its tokens, for each of the ``lengths + 1`` tokens)."""
         T = self.ecfg.page_tokens
         n = [int(x) + 1 for x in lengths]
         out = {"window_pages": 0, "full_pages": 0}
         for w, layers in self._windows.items():
             out["full_pages" if w is None else "window_pages"] += \
                 layers * pages_read(n, T, w or 0)
+        layout = self.kv.layout
+        if layout.latent:
+            row = int(np.prod(layout.shape)) // T \
+                * self.kv.buf.dtype.itemsize
+            out["latent_bytes"] = sum(n) * row
         return out
 
     def _paged_batch(self, live: List[tuple]) -> tuple:
@@ -791,18 +792,6 @@ class ServeEngine:
         self.qos.observe(req.tenant, req.done_at - req.submitted_at)
         if self._tenant_live[req.tenant] <= 0:
             self.qos.release(req.tenant)
-
-    def _decode_kv_tail(self, cache, position: int):
-        """The K/V the decode step just wrote for the token at
-        ``position`` (the sequence's stored length, kept on the host),
-        from its ring slot: [L, 2, 1, KV, hd]."""
-        if "k" not in cache:
-            return None
-        C = cache["k"].shape[2]
-        slot = position % C
-        k = cache["k"][:, 0, slot:slot + 1]
-        v = cache["v"][:, 0, slot:slot + 1]
-        return torch.stack([k, v], dim=1)
 
     def run(self, max_iters: int = 1000) -> None:
         it = 0

@@ -13,8 +13,10 @@ of all layers' K+V at once) and stored as LinkedBuffer logical pages:
   * swap-in cost is predicted with the tier model so the scheduler can
     decide hide-or-stall (repro_torch.core.tiers.hideable_page_bytes).
 
-Layout per logical page: [L, 2, page_tokens, KV, hd] (K and V stacked) —
-one DMA per page move, layer-major so a layer-by-layer decode can stream.
+Layout per logical page: the model's (``models/pages.py``), e.g. [L, 2,
+page_tokens, KV, hd] (K and V stacked) or latent attention's [L,
+page_tokens, latent] — one DMA per page move, layer-major so a
+layer-by-layer decode can stream.
 
 PyTorch port of ``repro.serve.kv_cache``.  The store's onboard tier lives
 on ``device`` (the card's HBM on CUDA) and its LMB tier in pinned host
@@ -34,6 +36,7 @@ from repro_torch.core.buffer import LinkedBuffer
 from repro_torch.core.client import LMBSystem
 from repro_torch.core.offload import TierExecutor
 from repro_torch.core.overlap import OverlapScheduler
+from repro_torch.models.pages import page_layout
 
 
 @dataclasses.dataclass
@@ -61,7 +64,7 @@ class DecodeView:
     """
 
     sids: List[int]
-    pool: torch.Tensor       # [P, L, 2, T, KV, hd]
+    pool: torch.Tensor       # [P, *page_shape]
     tables: np.ndarray       # [B, MP] int32 pool indices (-1 pad)
     lengths: np.ndarray      # [B] int32 tokens stored (pre-step)
     pages: List[int]         # the union of the sequences' logical pages
@@ -91,10 +94,12 @@ class PagedKVStore:
                 raise ValueError("PagedKVStore needs system= or host=")
             host = system.host(host_id)
         self.cfg = cfg
-        L = n_layers or cfg.num_layers
-        KV, hd = cfg.num_kv_heads, cfg.head_dim_
+        layout = page_layout(cfg, page_tokens, n_layers)
+        self.layout = layout
         self.page_tokens = page_tokens
-        self.page_shape = (L, 2, page_tokens, KV, hd)
+        self.page_shape = layout.shape
+        #: the page's axis that runs over its tokens
+        self.token_axis = layout.token_axis
         self.buf = LinkedBuffer(
             name=f"kv:{device_id}", device_id=device_id, host=host,
             executor=executor or TierExecutor(device,
@@ -142,15 +147,17 @@ class PagedKVStore:
 
     # ------------------------------------------------------------ data path
     def append_tokens(self, sid: int, kv: torch.Tensor) -> None:
-        """kv [L, 2, T, KV, hd] for T new tokens (T <= page_tokens from
-        decode; prefill calls in page-sized slabs).  Batched data path:
+        """kv: page rows of T new tokens (the page's layout with T on its
+        token axis; T <= page_tokens from decode; prefill calls in
+        page-sized slabs).  Batched data path:
         the touched pages are planned up front, faulted in with ONE
         ``read_many`` burst, updated, and written back with ONE
         ``write_many`` burst — a multi-page prefill slab costs one
         coalesced transfer per LMB chunk instead of a read/write pair
         per page."""
         seq = self._seqs[sid]
-        T = kv.shape[2]
+        ax = self.token_axis
+        T = kv.shape[ax]
         if T == 0:
             return                        # empty slab: scalar loop no-op
         # plan the page segments this slab touches
@@ -170,33 +177,34 @@ class PagedKVStore:
             # no stack/batch machinery on the hottest per-token path
             page, off, take, _ = segs[0]
             cur = self.buf.read(page)       # a copy: update it in place
-            cur[:, :, off:off + take] = kv
+            cur.narrow(ax, off, take).copy_(kv)
             self.buf.write(page, cur)
             seq.length = length
             return
         pages = [s[0] for s in segs]
         cur = self.buf.read_many(pages)        # one coalesced fault burst
         for i, (page, off, take, done) in enumerate(segs):
-            cur[i, :, :, off:off + take] = kv[:, :, done:done + take]
+            cur[i].narrow(ax, off, take).copy_(kv.narrow(ax, done, take))
         self.buf.write_many(pages, cur)        # cur is a copy, not a pool
         seq.length = length
 
     def gather_seq(self, sid: int) -> torch.Tensor:
-        """Materialize a sequence's KV [L, 2, seq.length, KV, hd] onboard
+        """Materialize a sequence's KV onboard, in the page's layout with
+        ``seq.length`` tokens on its token axis
         (used for swap-in to a dense decode slot).  The token axis is
         trimmed to the sequence's true length — the tail page's unwritten
         slots are allocator garbage and must never reach attention (the
         silent padded return was the PR-10 bug class).  ``gather`` rides
         the batched path: one coalesced transfer per LMB chunk and one
         arbiter charge per expander link for the whole sequence."""
-        seq = self._seqs[sid]
+        seq, ax = self._seqs[sid], self.token_axis
         if not seq.pages:
-            return self.buf._zeros(self.page_shape)[:, :, :0]
-        stacked = self.buf.gather(seq.pages)       # [n, L, 2, T, KV, hd]
-        n = stacked.shape[0]
-        L, _, T, KV, hd = self.page_shape
-        full = torch.movedim(stacked, 0, 2).reshape(L, 2, n * T, KV, hd)
-        return full[:, :, :seq.length]
+            return self.buf._zeros(self.page_shape).narrow(ax, 0, 0)
+        stacked = self.buf.gather(seq.pages)       # [n, *page_shape]
+        n, shape = stacked.shape[0], self.page_shape
+        full = torch.movedim(stacked, 0, ax).reshape(
+            *shape[:ax], n * shape[ax], *shape[ax + 1:])
+        return full.narrow(ax, 0, seq.length)
 
     def pin_seq(self, sid: int) -> None:
         """Pin a sequence's pages onboard with ONE batched fault burst
@@ -361,7 +369,7 @@ class PagedKVStore:
             rows, pool = resident
             self.direct_rounds += 1
         else:
-            pool = self.buf.read_many(          # [n, L, 2, T, KV, hd]
+            pool = self.buf.read_many(          # [n, *page_shape]
                 union, out=into(len(union)) if into else None)
             rows = np.arange(len(union))
             self.gathered_rounds += 1
@@ -382,7 +390,7 @@ class PagedKVStore:
 
     def commit_decode(self, view: DecodeView, pool: torch.Tensor) -> None:
         """Write one decode round's results back: only the tail pages
-        changed (the step writes the new token's K/V there in place), and
+        changed (the step writes the new token's entries there in place), and
         each sequence advances by the token it just stored.  A direct
         view's step wrote the onboard pool itself, so the tail pages are
         only recorded as written (``LinkedBuffer.wrote_in_place``); a

@@ -55,9 +55,9 @@ COMMENT_EDITED = ["models/flags.py"]
 #: profiler's clock (``obs/trace.py``), mark the spans whose duration is
 #: modeled (``core/fabric.py``, ``core/faults.py``), give those a track
 #: of their own (``obs/export.py``) and add the fields and the registered
-#: config of a model the reference lacks (``configs/base.py``:
-#: k-exaone-236b-a23b); each holds every line of the original, in order,
-#: and only adds lines
+#: configs of models the reference lacks (``configs/base.py``:
+#: k-exaone-236b-a23b, deepseek-v3); each holds every line of the
+#: original, in order, and only adds lines
 EXTENDED = ["obs/trace.py", "obs/export.py", "core/fabric.py",
             "core/faults.py", "configs/base.py"]
 
@@ -111,9 +111,9 @@ def test_serve_exports_the_reference_names_and_decode_view():
 
 def test_config_base_differs_only_in_load_all():
     """configs/base.py is an extended copy (``EXTENDED``); its
-    ``_load_all`` registers the reference's ten configs and the one the
-    port adds, k-exaone-236b-a23b, whose config each reference config
-    equals field for field where both have the field."""
+    ``_load_all`` registers the reference's ten configs and the two the
+    port adds, k-exaone-236b-a23b and deepseek-v3, whose config each
+    reference config equals field for field where both have the field."""
     import dataclasses
 
     from repro.configs.base import get_config as jget_config
@@ -125,7 +125,8 @@ def test_config_base_differs_only_in_load_all():
         "h2o-danube-3-4b", "hymba-1.5b", "mixtral-8x22b", "qwen2-1.5b",
         "rwkv6-7b", "seamless-m4t-large-v2")
     assert list_configs() == tuple(sorted(jlist_configs()
-                                          + ("k-exaone-236b-a23b",)))
+                                          + ("k-exaone-236b-a23b",
+                                             "deepseek-v3")))
     for name in jlist_configs():
         ours = dataclasses.asdict(get_config(name))
         theirs = dataclasses.asdict(jget_config(name))

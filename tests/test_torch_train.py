@@ -310,4 +310,5 @@ def test_training_never_reaches_a_kernel():
     assert {k: after[k] - before[k] for k in after
             if k != "ssd_scan"} == {"flash_attention": 0,
                                     "paged_attention_decode": 0,
-                                    "rwkv6_scan": 0, "expert_ffn": 0}
+                                    "rwkv6_scan": 0, "expert_ffn": 0,
+                                    "mla_decode": 0}
